@@ -1,0 +1,20 @@
+"""gnuais-tpu on PyTorch and CUDA.
+
+A port of the ``gnuais_tpu`` decode step to PyTorch, with the fused
+decode kernel written by hand in CUDA C++ for Hopper (``sm_90a``).  The
+JAX package stays the reference: every op here is held bit for bit
+against its ``gnuais_tpu`` counterpart on the CPU.
+
+This package imports ``torch`` and never ``jax``.  It shares the host
+layers of ``gnuais_tpu`` that never import JAX (``constants``,
+``config``, ``golden``, ``ais``, ``native``, ``io.audio``, ``io.sinks``,
+``runtime.session``, ``runtime.metrics``).
+
+Entry points: ``runtime.pipeline.BatchPipeline`` and ``TorchReceiver``
+(the decode step with a carried state), ``runtime.batch.BatchSession``
+(the fleet decode) and the ``gnuais-tpu-torch`` command
+(``gnuais_tpu_torch.cli``).  Every constructor takes an explicit
+``device``; nothing picks one silently.
+"""
+
+__version__ = "0.1.0"

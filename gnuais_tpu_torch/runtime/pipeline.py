@@ -1,0 +1,251 @@
+"""Batched decode pipeline: the device step and the host frame drain
+(counterpart of ``gnuais_tpu/runtime/pipeline.py``).
+
+``decode_block`` consumes an int16 ``[S, T]`` block and the carry (FIR
+history, DPLL state, HDLC state) and returns the new carry, the block's
+frame snapshots and the per-stream peak.  Two branches: the exact chain
+(default, plain PyTorch) and the fused kernel with dense slots
+(``fused_pipeline=True``, which is the JAX package's
+``fused_pipeline=True, kernel_compact=True``), optionally followed by
+the on-device CRC filter.  The host unpacks the frame snapshots, checks
+CRC-16 and hands the payloads to the shared AIS layer.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gnuais_tpu import constants as C
+from gnuais_tpu.golden.model import Frame, crc_check_and_extract
+
+from ..device import resolve_device
+from ..ops import crc as crc_ops
+from ..ops import demod, fir
+from ..ops.fused import (pipeline_fused_compact,
+                         pipeline_fused_compact_reference)
+
+
+class PipelineCarry(NamedTuple):
+    history: torch.Tensor     # [S, 36] float32 FIR history
+    dpll: demod.DpllState
+    hdlc: demod.HdlcState
+
+
+def init_carry(n_streams: int, device: torch.device | str) -> PipelineCarry:
+    return PipelineCarry(
+        history=fir.init_history(n_streams, device),
+        dpll=demod.init_dpll(n_streams, device),
+        hdlc=demod.init_hdlc(n_streams, device),
+    )
+
+
+def _device_crc_filter(frames: demod.FrameBatch, s: int,
+                       frame_slots: int) -> demod.FrameBatch:
+    """On-device CRC post-pass: the linear CRC over every slot, then
+    keep only the passing frames (compacted in arrival order); rejects
+    land in the crcfail counter."""
+    ok = crc_ops.crc_check_frames_linear(
+        frames.words.reshape(-1, frames.words.shape[-1]),
+        frames.length.reshape(-1)).reshape(s, frame_slots)
+    slots = torch.arange(frame_slots, device=frames.count.device)
+    present = slots[None, :] < frames.count[:, None]
+    crcfail = (present & ~ok).sum(dim=1).to(torch.int32)
+    kept = demod.compact_candidates(
+        demod.init_frames(s, frame_slots, frames.words.device), present & ok,
+        frames.words, frames.length, frames.start, frames.end,
+        lost2=frames.lost2, over=frames.dropped)
+    return kept._replace(crcfail=crcfail)
+
+
+def decode_block(samples: torch.Tensor, n_valid: int, carry: PipelineCarry,
+                 frame_slots: int = 32, block_base: int = 0,
+                 fused_pipeline: bool = False, device_crc: bool = False,
+                 lost2_lo: Optional[int] = None,
+                 lost2_hi: Optional[int] = None
+                 ) -> Tuple[PipelineCarry, demod.FrameBatch, torch.Tensor]:
+    """samples: int16 [S, T]; n_valid: samples actually present (short
+    final blocks are padded to T).  Returns (carry', frames, peak [S]).
+
+    The default runs the exact chain in plain PyTorch on any device
+    (``ops.fused.pipeline_fused_compact_reference``).  fused_pipeline
+    runs the fused step with in-kernel compaction
+    (``ops.fused.pipeline_fused_compact``: the CUDA kernel for a CUDA
+    tensor), which returns the same dense frame slots; device_crc then
+    CRC-checks them on the device and keeps only passing frames (rejects
+    counted in ``frames.crcfail``)."""
+    s = samples.shape[0]
+    if device_crc and not fused_pipeline:
+        raise ValueError("device_crc requires fused_pipeline")
+    step = (pipeline_fused_compact if fused_pipeline
+            else pipeline_fused_compact_reference)
+    (count_raw, words, length, start, end, lost2, over,
+     history, dpll_state, hdlc_state) = step(
+        samples, n_valid, carry.history, carry.dpll, carry.hdlc,
+        frame_slots=frame_slots, block_base=block_base,
+        lost2_lo=lost2_lo, lost2_hi=lost2_hi)
+    # count_raw is not clipped to the slots: the excess was dropped
+    frames = demod.FrameBatch(
+        words=words, length=length, start=start, end=end,
+        count=torch.clamp(count_raw, max=frame_slots), lost2=lost2,
+        dropped=over + torch.clamp(count_raw - frame_slots, min=0),
+        crcfail=torch.zeros_like(count_raw))
+    if device_crc:
+        frames = _device_crc_filter(frames, s, frame_slots)
+    peak = fir.block_peak(samples)
+    return PipelineCarry(history, dpll_state, hdlc_state), frames, peak
+
+
+# ---------------------------------------------------------------------------
+# Host drain
+# ---------------------------------------------------------------------------
+
+def _reg_to_bits(words: np.ndarray, nbits: int) -> np.ndarray:
+    """Unpack the last ``nbits`` appended bits from a register snapshot
+    ([REG_WORDS] uint32, newest bit = LSB of the last word)."""
+    allbits = np.zeros(demod.REG_BITS, dtype=np.uint8)
+    for w in range(demod.REG_WORDS):
+        v = int(words[w])
+        for i in range(32):
+            allbits[w * 32 + i] = (v >> (31 - i)) & 1
+    return allbits[demod.REG_BITS - nbits:]
+
+
+def extract_frames(frames: demod.FrameBatch) -> List[List[Frame]]:
+    """Host drain: CRC-check each snapshot; returns per-stream lists of
+    Frame (crc_ok False entries kept for the wrong-CRC counter).  Uses
+    the shared native drain when it is available."""
+    words = frames.words.cpu().numpy().view(np.uint32)
+    length = frames.length.cpu().numpy()
+    count = frames.count.cpu().numpy()
+    n_streams = words.shape[0]
+
+    from gnuais_tpu import native
+    if native.available():
+        out: List[List[Frame]] = [[] for _ in range(n_streams)]
+        for s_idx, payload, flen, ok in native.drain_frames(words, length,
+                                                            count):
+            out[s_idx].append(Frame(payload, flen, ok))
+        return out
+
+    out = []
+    for s in range(n_streams):
+        lst: List[Frame] = []
+        for k in range(int(count[s])):
+            flen = int(length[s, k])
+            # the register holds payload bits + 16 FCS + 6 flag bits
+            raw = _reg_to_bits(words[s, k], flen + C.FRAME_TAIL_BITS)
+            ok, payload = crc_check_and_extract(raw, flen)
+            lst.append(Frame(payload, flen, ok))
+        out.append(lst)
+    return out
+
+
+@dataclass
+class StreamCounters:
+    receivedframes: int = 0
+    lostframes: int = 0
+    lostframes2: int = 0
+
+
+def _upload(samples: np.ndarray, device: torch.device) -> torch.Tensor:
+    if not (samples.flags.writeable and samples.flags.c_contiguous
+            and samples.dtype == np.int16):
+        samples = np.array(samples, dtype=np.int16, order="C")
+    return torch.from_numpy(samples).to(device)
+
+
+class BatchPipeline:
+    """Streaming decoder for S independent streams with carried state."""
+
+    def __init__(self, n_streams: int, block_len: int = 49_152,
+                 frame_slots: int = 32, fused_pipeline: bool = False,
+                 device_crc: bool = False,
+                 device: torch.device | str = "cuda"):
+        if fused_pipeline and block_len % 512:
+            raise ValueError("fused path: block_len % 512 == 0")
+        if device_crc and not fused_pipeline:
+            raise ValueError("device_crc requires fused_pipeline")
+        self.device = resolve_device(device)
+        self.n_streams = n_streams
+        self.block_len = block_len
+        self.frame_slots = frame_slots
+        self.fused_pipeline = fused_pipeline
+        self.device_crc = device_crc
+        self.carry = init_carry(n_streams, self.device)
+        self.counters = [StreamCounters() for _ in range(n_streams)]
+
+    def step(self, samples: torch.Tensor, n_valid: int
+             ) -> Tuple[demod.FrameBatch, torch.Tensor]:
+        """Decode one padded device block [S, block_len], advancing the
+        carry.  Returns (frames, peak) on the device."""
+        self.carry, frames, peak = decode_block(
+            samples, n_valid, self.carry, frame_slots=self.frame_slots,
+            fused_pipeline=self.fused_pipeline, device_crc=self.device_crc)
+        return frames, peak
+
+    def process(self, samples: np.ndarray) -> List[List[Frame]]:
+        """samples: int16 [S, n] with n <= block_len (padded here).
+        Returns per-stream CRC-passing frames in arrival order."""
+        s, n = samples.shape
+        if s != self.n_streams or n > self.block_len:
+            raise ValueError(f"block {samples.shape} does not fit "
+                             f"[{self.n_streams}, <= {self.block_len}]")
+        if n < self.block_len:
+            samples = np.pad(samples, ((0, 0), (0, self.block_len - n)))
+        frames, _peak = self.step(_upload(samples, self.device), n)
+        return self._account(extract_frames(frames), frames)
+
+    def _account(self, per_stream, frames) -> List[List[Frame]]:
+        lost2 = frames.lost2.cpu().numpy()
+        dropped = frames.dropped.cpu().numpy()
+        crcfail = frames.crcfail.cpu().numpy()
+        result: List[List[Frame]] = []
+        for i, lst in enumerate(per_stream):
+            ok = [f for f in lst if f.crc_ok]
+            ctr = self.counters[i]
+            ctr.receivedframes += len(ok)
+            # host-CRC mode counts rejects in the drained list;
+            # device_crc mode pre-filters and reports them in crcfail
+            ctr.lostframes += len(lst) - len(ok) + int(crcfail[i])
+            ctr.lostframes2 += int(lost2[i])
+            if dropped[i]:
+                raise RuntimeError(
+                    f"frame slot overflow on stream {i}: raise frame_slots")
+            result.append(ok)
+        return result
+
+
+class TorchReceiver:
+    """Single-channel adapter with the golden receiver's interface
+    (``run_block``, ``counters``), for ``DecodeSession`` and the CLI.
+
+    ``fused_pipeline`` selects the fused kernel with dense slots (block
+    length rounded up to a multiple of 512)."""
+
+    def __init__(self, name: str = "A", block_len: int = 1020,
+                 frame_slots: int = 16, fused_pipeline: bool = False,
+                 device_crc: bool = False, level_monitor=None,
+                 device: torch.device | str = "cuda"):
+        self.name = name
+        if fused_pipeline and block_len % 512:
+            block_len = -(-block_len // 512) * 512
+        self.pipe = BatchPipeline(1, block_len=block_len,
+                                  frame_slots=frame_slots,
+                                  fused_pipeline=fused_pipeline,
+                                  device_crc=device_crc, device=device)
+        self.level_monitor = level_monitor
+
+    def run_block(self, samples: np.ndarray) -> List[Frame]:
+        if self.level_monitor is not None:
+            # reference level meter: positive peak of the raw block
+            self.level_monitor.observe(max(0, int(samples.max(initial=0))))
+        return self.pipe.process(samples[None, :])[0]
+
+    @property
+    def counters(self):
+        c = self.pipe.counters[0]
+        return (c.receivedframes, c.lostframes, c.lostframes2)

@@ -1,0 +1,55 @@
+"""The port's command line in a subprocess, on the CPU (``--device
+cpu``): the committed fixture decodes to the reference stdout byte for
+byte, with the reference counters in the log."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+FIX = REPO / "tests" / "fixtures"
+SUMMARY = ("A: Received correctly: 49 packets, wrong CRC: 0 packets, "
+           "wrong size: 0 packets")
+
+
+def _cli(*args):
+    return subprocess.run(
+        [sys.executable, "-m", "gnuais_tpu_torch.cli", *args], cwd=REPO,
+        capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("backend", ["exact", "fused"])
+def test_cli_decodes_fixture(backend):
+    res = _cli("--device", "cpu", "--backend", backend,
+               "-l", str(FIX / "standard_capture.raw"))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout == (FIX / "standard_capture.stdout").read_text()
+    assert SUMMARY in res.stderr
+
+
+def test_cli_batch_replicated():
+    res = _cli("--device", "cpu", "--backend", "fused", "--replicate", "2",
+               "--batch", str(FIX / "standard_capture.raw"))
+    assert res.returncode == 0, res.stderr
+    expected = (FIX / "standard_capture.stdout").read_text().splitlines()
+    for i in range(2):
+        tag = f"[s{i}:standard_capture.raw] "
+        mine = [l[len(tag):] for l in res.stdout.splitlines()
+                if l.startswith(tag)]
+        assert mine == expected
+    assert res.stderr.count("Received correctly: 49 packets, wrong CRC: 0 "
+                            "packets, wrong size: 0 packets") == 2
+
+
+def test_cli_default_device_is_cuda():
+    """Without --device the CLI decodes on cuda; where there is none it
+    fails instead of using the CPU, and prints no message line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    res = _cli("-l", str(FIX / "standard_capture.raw"))
+    assert res.returncode != 0
+    assert res.stdout == ""
+    assert "torch.cuda.is_available() is False" in res.stderr

@@ -1,0 +1,95 @@
+"""The PyTorch port's package boundary: it imports no JAX, it never
+answers a request for the card with the CPU, and its CUDA sources carry
+the exact constants of the JAX package."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gnuais_tpu import constants as C
+
+REPO = Path(__file__).resolve().parent.parent
+MODULES = [
+    "gnuais_tpu_torch",
+    "gnuais_tpu_torch.device",
+    "gnuais_tpu_torch.captures",
+    "gnuais_tpu_torch.convert",
+    "gnuais_tpu_torch.cli",
+    "gnuais_tpu_torch.ops.fir",
+    "gnuais_tpu_torch.ops.demod",
+    "gnuais_tpu_torch.ops.crc",
+    "gnuais_tpu_torch.ops.fused",
+    "gnuais_tpu_torch.ops._build",
+    "gnuais_tpu_torch.runtime.pipeline",
+    "gnuais_tpu_torch.runtime.batch",
+]
+
+
+def test_port_imports_without_jax():
+    """Every module imports in a fresh interpreter where ``import jax``
+    fails (tests/conftest.py imports jax in this process)."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import importlib\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
+            "             m.startswith(('jax.', 'jaxlib')))\n"
+            "bad = [m for m in bad if sys.modules[m] is not None]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_resolve_device_never_falls_back():
+    from gnuais_tpu_torch.device import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_receiver_defaults_to_cuda():
+    from gnuais_tpu_torch.runtime.pipeline import TorchReceiver
+    if torch.cuda.is_available():
+        assert TorchReceiver("A").pipe.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            TorchReceiver("A")
+
+
+def test_kernel_taps_are_the_float32_taps():
+    """The hex float literals of the CUDA header are the JAX package's
+    float32 taps, bit for bit (taps 2 and 33 are subnormal)."""
+    src = (REPO / "gnuais_tpu_torch" / "csrc" / "pipeline_step.cuh").read_text()
+    body = src.split("#define GNUAIS_FIR_TAPS", 1)[1].split("\n\n", 1)[0]
+    lits = re.findall(r"(0x[0-9a-f.]+p[+-]?\d+)f", body)
+    taps = np.array([float.fromhex(v) for v in lits], dtype=np.float32)
+    assert len(taps) == C.FIR_LEN
+    assert np.array_equal(taps.view(np.uint32),
+                          np.asarray(C.FIR_TAPS, np.float32).view(np.uint32))
+    assert np.count_nonzero((taps != 0) & (np.abs(taps) < np.finfo(np.float32).tiny)) == 2
+
+
+def test_kernel_build_flags_keep_rounding_exact():
+    """No multiply-add contraction and no fast math (flush-to-zero),
+    Hopper's sm_90a target; the build lands under build/ (gitignored)."""
+    from gnuais_tpu_torch.ops import _build
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "--fmad=false" in flags
+    assert "fast_math" not in flags and "ftz=true" not in flags
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert _build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
+    assert "build/" in (REPO / ".gitignore").read_text().split()
