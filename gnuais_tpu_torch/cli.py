@@ -1,16 +1,20 @@
 """Command line: decode a capture file on the GPU (or the CPU).
 
     gnuais-tpu-torch [-c cfgfile] -l <capture.raw|.wav>
-                     [--backend exact|fused] [--device cuda|cpu]
-    gnuais-tpu-torch --batch FILE... [--replicate N] [--backend ...]
+                     [--backend exact|fast|fused|golden] [--device cuda|cpu]
+    gnuais-tpu-torch --batch FILE... [--replicate N]
+                     [--backend exact|fast|fused]
 
 The file-decode slice of ``gnuais-tpu`` (``gnuais_tpu/cli.py``): message
 lines go to stdout in the reference format, the per-channel "Received
 correctly / wrong CRC / wrong size" summary to the log (stderr).  The
-``exact`` backend runs the plain PyTorch chain in reference-sized
-blocks; ``fused`` runs the CUDA kernel in 1024-sample blocks with the
-CRC filter on the device.  The device defaults to ``cuda``; ``cpu`` must
-be asked for.
+backend comes from ``--backend`` or the config's ``backend`` directive:
+``exact`` runs the plain PyTorch chain in reference-sized blocks;
+``fast`` runs the exact FIR, the DPLL kernel and the plain deframer in
+1024-sample blocks with the CRC on the host; ``fused`` runs the fused
+kernel in 1024-sample blocks with the CRC filter on the device;
+``golden`` runs the shared golden model (``gnuais_tpu.golden``) on the
+host.  The device defaults to ``cuda``; ``cpu`` must be asked for.
 """
 
 from __future__ import annotations
@@ -37,23 +41,27 @@ LOG_LEVELS = {"emerg": logging.CRITICAL, "alert": logging.CRITICAL,
               "warning": logging.WARNING, "notice": logging.INFO,
               "info": logging.INFO, "debug": logging.DEBUG}
 
-BACKENDS = ("exact", "fused")
+BACKENDS = ("exact", "fast", "fused", "golden")
 
 
 def make_receiver_factory(cfg: Config, device: str):
-    from .runtime.pipeline import TorchReceiver
     if cfg.backend not in BACKENDS:
         raise SystemExit(f"unknown backend: {cfg.backend} "
                          f"(this port has {', '.join(BACKENDS)})")
+    if cfg.backend == "golden":
+        from gnuais_tpu.golden.model import GoldenReceiver
+        return lambda name: GoldenReceiver(name)
+    from .runtime.pipeline import TorchReceiver
+    fast = cfg.backend == "fast"
     fused = cfg.backend == "fused"
-    # the fused kernel takes 512-multiple blocks
-    block = 1024 if fused else audio_io.reference_block_frames()
+    # the kernels take 512-multiple blocks
+    block = 1024 if fast or fused else audio_io.reference_block_frames()
 
     def factory(name):
         # always attached: the >95 % overload warning fires even without
         # a SoundLevelLog interval (receiver.c:137-147)
         return TorchReceiver(name, block_len=block,
-                             frame_slots=cfg.frameslots,
+                             frame_slots=cfg.frameslots, fast_dpll=fast,
                              fused_pipeline=fused, device_crc=fused,
                              level_monitor=LevelMonitor(name,
                                                         cfg.sound_levellog),
@@ -104,7 +112,10 @@ def run_decode(cfg: Config, device: str, out_stream=None) -> int:
 
 def run_batch(paths: List[str], replicate: int, backend: str,
               device: str) -> int:
-    from .runtime.batch import decode_files
+    from .runtime.batch import BACKENDS as BATCH_BACKENDS, decode_files
+    if backend not in BATCH_BACKENDS:
+        raise SystemExit(f"--batch has no {backend} backend (it has "
+                         f"{', '.join(BATCH_BACKENDS)})")
     res = decode_files(paths, replicate=replicate, backend=backend,
                        device=device)
     for line in res.lines:

@@ -1,13 +1,13 @@
 // One stream's decode step: exact FIR, DPLL slicer with NRZI, and the
 // HDLC deframer with its 15x32-bit register.
 //
-// Shared between the CUDA kernel (pipeline_compact.cu) and a later CPU
-// build, so every function is __host__ __device__ and the state lives in
-// plain structs.  Bit-exact with the exact chain of gnuais_tpu
-// (ops/fir.fir_exact, ops/demod.dpll_scan / group_reduce_bits /
-// hdlc_scan): the FIR rounds every product and every partial sum to
-// float32 once, in tap order, with no fused multiply-add; subnormals are
-// kept, as in the reference C receiver.
+// Shared between the CUDA kernels (pipeline_compact.cu, frontend.cu,
+// dpll.cu) and a later CPU build, so every function is __host__
+// __device__ and the state lives in plain structs.  Bit-exact with the
+// exact chain of gnuais_tpu (ops/fir.fir_exact, ops/demod.dpll_scan /
+// group_reduce_bits / hdlc_scan): the FIR rounds every product and every
+// partial sum to float32 once, in tap order, with no fused multiply-add;
+// subnormals are kept, as in the reference C receiver.
 
 #pragma once
 

@@ -24,18 +24,20 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gnuais_tpu_torch"
 # --fmad=false: no multiply-add contraction, so the FIR rounds like the
 # exact chain; no --use_fast_math, whose flush-to-zero would change it
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes of every C entry point in the library
 _ENTRIES = {
     "gnuais_pipeline_compact": [_P] * 13 + [_I] * 7 + [_P],
+    "gnuais_frontend": [_P] * 5 + [_I] * 3 + [_P],
+    "gnuais_dpll": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
-build_log = ""   # compiler output of the last build in this process
+build_log = ""   # compiler output of the library last built or found
 
 
 def nvcc_path() -> str:
@@ -52,30 +54,49 @@ def _sources():
     return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
 
 
-def build(verbose: bool = False) -> Path:
+def build() -> Path:
     """Compile the kernels (unless the library for these sources is
-    cached) and return the library's path.  ``verbose`` adds ``-Xptxas
-    -v`` (registers, spills) to a fresh build; the compiler's output is
-    kept in ``build_log``."""
+    cached) and return the library's path.  One ``nvcc -c`` per source,
+    all started together, then one link.  The compiler's output, with
+    each kernel's registers and spills (``-Xptxas -v``), is kept beside
+    the library and in ``build_log``."""
     global build_log
     cu, cuh = _sources()
     # -Xptxas -v changes the compiler's report, not the library
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     out_dir = BUILD_DIR / h.hexdigest()[:16]
     lib_path = out_dir / "libgnuais_tpu_torch.so"
+    log_path = out_dir / "nvcc.log"
     if lib_path.exists():
+        if log_path.exists():
+            build_log = log_path.read_text()
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".lib.{os.getpid()}.so"
-    cmd = [nvcc_path(), *flags, "-o", str(tmp), *map(str, cu)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    nvcc = nvcc_path()
+    pid = os.getpid()
+    objs = [out_dir / f".{p.stem}.{pid}.o" for p in cu]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(p)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p, o in zip(cu, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    build_log = "".join(logs)
+    failed = [p.name for p, proc in zip(cu, procs) if proc.returncode]
+    if not failed:
+        tmp = out_dir / f".lib.{pid}.so"
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
+        if res.returncode:
+            failed = ["link"]
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
+    log_path.write_text(build_log)
     os.replace(tmp, lib_path)     # atomic: no reader sees a partial file
     return lib_path
 

@@ -1,0 +1,99 @@
+"""Device time of the three kernel wrappers, one block each, by
+``torch.profiler``, on one NVIDIA GPU:
+
+    python -m gnuais_tpu_torch.profile_kernels [--streams 4096] \\
+        [--block 49152] [--rounds 3]
+
+The wrappers are B1 (``pipeline_fused_compact``, 32 frame slots), B3
+(``frontend_fused``) and B4 (``dpll_fused``, on the exact FIR of the
+same block).  The block is ``captures.mixed`` of 32 rows, repeated over
+the streams.  Each wrapper runs once to warm up (and to build the
+kernels), then in the order B1 B3 B4 B4 B3 B1, ``rounds`` times, each
+call under a profiler of its own.  For each wrapper the script prints
+every device kernel of its calls (its hand-written kernel and the
+copies and decodes around it) with its mean device time per call, their
+sum, and the card's name and power limit.  Run it in a process of its
+own: nothing else may use the card meanwhile.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from . import captures
+from .ops import fir, fused
+from .runtime.pipeline import init_carry
+
+
+def wrappers(n_streams: int, block: int):
+    """name -> a call of that wrapper on one block at the given size."""
+    rows = captures.mixed(32, block, seed=1)
+    x = torch.from_numpy(np.tile(rows, (-(-n_streams // 32), 1))[:n_streams]
+                         ).cuda()
+    c = init_carry(n_streams, "cuda")
+    filtered, _ = fir.fir_exact(x, c.history)
+    return {
+        "B1 pipeline_fused_compact": lambda: fused.pipeline_fused_compact(
+            x, block, c.history, c.dpll, c.hdlc, frame_slots=32),
+        "B3 frontend_fused": lambda: fused.frontend_fused(
+            x, block, c.history, c.dpll),
+        "B4 dpll_fused": lambda: fused.dpll_fused(filtered, block, c.dpll),
+    }
+
+
+def profile(fns, rounds: int):
+    """name -> {kernel: [device ms per call]}, the calls interleaved."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    names = list(fns)
+    order = (names + names[::-1]) * rounds
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    per_call = {n: collections.defaultdict(list) for n in names}
+    for name in order:
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fns[name]()
+            torch.cuda.synchronize()
+        ms = collections.Counter()
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                ms[ev.name] += ev.time_range.elapsed_us() / 1e3
+        for kernel, t in ms.items():
+            per_call[name][kernel].append(t)
+    return per_call
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--streams", type=int, default=4096)
+    ap.add_argument("--block", type=int, default=49_152)
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    per_call = profile(wrappers(args.streams, args.block), args.rounds)
+    print(f"S={args.streams} T={args.block}, {2 * args.rounds} calls per "
+          f"wrapper; mean device ms per call (torch.profiler); {card}")
+    for name, kernels in per_call.items():
+        calls = 2 * args.rounds
+        total = sum(sum(v) for v in kernels.values()) / calls
+        print(f"{name}: {total:.3f} ms on the device")
+        for kernel, v in sorted(kernels.items(), key=lambda kv: -sum(kv[1])):
+            print(f"  {sum(v) / calls:9.3f} ms  {len(v)}/{calls} calls  "
+                  f"{kernel[:100]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,6 +22,7 @@ from .pipeline import BatchPipeline
 # backend -> BatchPipeline flags
 BACKENDS = {
     "exact": dict(),
+    "fast": dict(fast_dpll=True),
     "fused": dict(fused_pipeline=True, device_crc=True),
 }
 

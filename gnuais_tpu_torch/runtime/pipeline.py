@@ -3,12 +3,21 @@
 
 ``decode_block`` consumes an int16 ``[S, T]`` block and the carry (FIR
 history, DPLL state, HDLC state) and returns the new carry, the block's
-frame snapshots and the per-stream peak.  Two branches: the exact chain
-(default, plain PyTorch) and the fused kernel with dense slots
-(``fused_pipeline=True``, which is the JAX package's
-``fused_pipeline=True, kernel_compact=True``), optionally followed by
-the on-device CRC filter.  The host unpacks the frame snapshots, checks
-CRC-16 and hands the payloads to the shared AIS layer.
+frame snapshots and the per-stream peak.  Its branches, in JAX's order
+of precedence:
+
+- ``fused_pipeline``: kernel B1 with dense slots (the JAX package's
+  ``fused_pipeline=True, kernel_compact=True``), optionally followed by
+  the on-device CRC filter;
+- ``fused_frontend``: kernel B3 (FIR, DPLL, bit slots), then the
+  deframer ``demod.hdlc_scan``;
+- ``fast_dpll``: the exact FIR, kernel B4, the group reduce and
+  ``hdlc_scan``;
+- otherwise the exact chain in plain PyTorch.
+
+``decode_superblock`` chains K blocks through ``decode_block``.  The
+host unpacks the frame snapshots, checks CRC-16 and hands the payloads
+to the shared AIS layer.
 """
 
 from __future__ import annotations
@@ -25,8 +34,7 @@ from gnuais_tpu.golden.model import Frame, crc_check_and_extract
 from ..device import resolve_device
 from ..ops import crc as crc_ops
 from ..ops import demod, fir
-from ..ops.fused import (pipeline_fused_compact,
-                         pipeline_fused_compact_reference)
+from ..ops.fused import bit_slots, frontend_fused, pipeline_fused_compact
 
 
 class PipelineCarry(NamedTuple):
@@ -63,40 +71,92 @@ def _device_crc_filter(frames: demod.FrameBatch, s: int,
 
 def decode_block(samples: torch.Tensor, n_valid: int, carry: PipelineCarry,
                  frame_slots: int = 32, block_base: int = 0,
+                 fast_dpll: bool = False, fused_frontend: bool = False,
                  fused_pipeline: bool = False, device_crc: bool = False,
                  lost2_lo: Optional[int] = None,
                  lost2_hi: Optional[int] = None
                  ) -> Tuple[PipelineCarry, demod.FrameBatch, torch.Tensor]:
     """samples: int16 [S, T]; n_valid: samples actually present (short
-    final blocks are padded to T).  Returns (carry', frames, peak [S]).
+    final blocks are padded to T); block_base: absolute index of sample
+    0.  Returns (carry', frames, peak [S]).
 
-    The default runs the exact chain in plain PyTorch on any device
-    (``ops.fused.pipeline_fused_compact_reference``).  fused_pipeline
-    runs the fused step with in-kernel compaction
-    (``ops.fused.pipeline_fused_compact``: the CUDA kernel for a CUDA
-    tensor), which returns the same dense frame slots; device_crc then
-    CRC-checks them on the device and keeps only passing frames (rejects
-    counted in ``frames.crcfail``)."""
+    fused_pipeline runs the fused step with in-kernel compaction
+    (``ops.fused.pipeline_fused_compact``), which returns dense frame
+    slots; device_crc then CRC-checks them on the device and keeps only
+    passing frames (rejects counted in ``frames.crcfail``).  Otherwise
+    the block is cut into 4-sample bit slots by ``ops.fused.
+    frontend_fused`` (fused_frontend) or by the exact FIR and
+    ``dpll_fused`` (fast_dpll) or ``dpll_scan`` (the default), and
+    ``demod.hdlc_scan`` deframes them.  Each kernel wrapper launches its
+    CUDA kernel for a CUDA tensor and runs its plain version for a CPU
+    tensor; every branch gives the exact chain's result bit for bit.
+
+    The JAX function's ``exact_fir`` (the ``fir_conv`` FIR) and
+    ``pretiled_streams`` (the pretiled ingest) are not ported: the FIR is
+    always the exact one and the input always row-major."""
     s = samples.shape[0]
     if device_crc and not fused_pipeline:
         raise ValueError("device_crc requires fused_pipeline")
-    step = (pipeline_fused_compact if fused_pipeline
-            else pipeline_fused_compact_reference)
-    (count_raw, words, length, start, end, lost2, over,
-     history, dpll_state, hdlc_state) = step(
-        samples, n_valid, carry.history, carry.dpll, carry.hdlc,
-        frame_slots=frame_slots, block_base=block_base,
-        lost2_lo=lost2_lo, lost2_hi=lost2_hi)
-    # count_raw is not clipped to the slots: the excess was dropped
-    frames = demod.FrameBatch(
-        words=words, length=length, start=start, end=end,
-        count=torch.clamp(count_raw, max=frame_slots), lost2=lost2,
-        dropped=over + torch.clamp(count_raw - frame_slots, min=0),
-        crcfail=torch.zeros_like(count_raw))
-    if device_crc:
-        frames = _device_crc_filter(frames, s, frame_slots)
+    if fused_pipeline:
+        (count_raw, words, length, start, end, lost2, over,
+         history, dpll_state, hdlc_state) = pipeline_fused_compact(
+            samples, n_valid, carry.history, carry.dpll, carry.hdlc,
+            frame_slots=frame_slots, block_base=block_base,
+            lost2_lo=lost2_lo, lost2_hi=lost2_hi)
+        # count_raw is not clipped to the slots: the excess was dropped
+        frames = demod.FrameBatch(
+            words=words, length=length, start=start, end=end,
+            count=torch.clamp(count_raw, max=frame_slots), lost2=lost2,
+            dropped=over + torch.clamp(count_raw - frame_slots, min=0),
+            crcfail=torch.zeros_like(count_raw))
+        if device_crc:
+            frames = _device_crc_filter(frames, s, frame_slots)
+    else:
+        if fused_frontend:
+            slots = frontend_fused(samples, n_valid, carry.history,
+                                   carry.dpll, block_base)
+        else:
+            slots = bit_slots(samples, n_valid, carry.history, carry.dpll,
+                              block_base, fast_dpll=fast_dpll)
+        gbits, gvalid, gpos, history, dpll_state = slots
+        hdlc_state, frames = demod.hdlc_scan(
+            gbits, gvalid, carry.hdlc,
+            demod.init_frames(s, frame_slots, samples.device), gpos,
+            lost2_lo=lost2_lo, lost2_hi=lost2_hi)
     peak = fir.block_peak(samples)
     return PipelineCarry(history, dpll_state, hdlc_state), frames, peak
+
+
+def decode_superblock(samples: torch.Tensor, n_valid: int,
+                      carry: PipelineCarry, n_blocks: int,
+                      frame_slots: int = 32, block_base: int = 0,
+                      **flags) -> Tuple[PipelineCarry, demod.FrameBatch,
+                                        torch.Tensor]:
+    """Decode ``n_blocks`` consecutive blocks of ``samples`` (int16
+    [S, n_blocks * T], row-major) in turn through ``decode_block``, the
+    carry chained from each block to the next on the device.
+
+    n_valid counts over the whole superblock: block k decodes
+    ``clip(n_valid - k*T, 0, T)`` samples at ``block_base + k*T``.
+    Returns (carry', frames, peak): the FrameBatch leaves stacked on a
+    leading [n_blocks] axis and peak [S] the maximum over the blocks.
+    The same result as n_blocks sequential ``decode_block`` calls with
+    the same ``flags``."""
+    s, total = samples.shape
+    if n_blocks < 1 or total % n_blocks:
+        raise ValueError(f"{total} samples do not split into {n_blocks} blocks")
+    t = total // n_blocks
+    per_block, peaks = [], []
+    for k in range(n_blocks):
+        nv = min(max(int(n_valid) - k * t, 0), t)
+        carry, frames, peak = decode_block(
+            samples[:, k * t:(k + 1) * t], nv, carry, frame_slots=frame_slots,
+            block_base=block_base + k * t, **flags)
+        per_block.append(frames)
+        peaks.append(peak)
+    frames_k = demod.FrameBatch(*(torch.stack(leaf) for leaf in
+                                  zip(*per_block)))
+    return carry, frames_k, torch.stack(peaks).amax(dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -159,22 +219,27 @@ def _upload(samples: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class BatchPipeline:
-    """Streaming decoder for S independent streams with carried state."""
+    """Streaming decoder for S independent streams with carried state.
+
+    The flags select ``decode_block``'s branch; the kernel paths
+    (fast_dpll, fused_frontend, fused_pipeline) take blocks of a multiple
+    of 512 samples, as in the JAX package."""
 
     def __init__(self, n_streams: int, block_len: int = 49_152,
-                 frame_slots: int = 32, fused_pipeline: bool = False,
+                 frame_slots: int = 32, fast_dpll: bool = False,
+                 fused_frontend: bool = False, fused_pipeline: bool = False,
                  device_crc: bool = False,
                  device: torch.device | str = "cuda"):
-        if fused_pipeline and block_len % 512:
-            raise ValueError("fused path: block_len % 512 == 0")
+        if (fast_dpll or fused_frontend or fused_pipeline) and block_len % 512:
+            raise ValueError("kernel path: block_len % 512 == 0")
         if device_crc and not fused_pipeline:
             raise ValueError("device_crc requires fused_pipeline")
         self.device = resolve_device(device)
         self.n_streams = n_streams
         self.block_len = block_len
         self.frame_slots = frame_slots
-        self.fused_pipeline = fused_pipeline
-        self.device_crc = device_crc
+        self.flags = dict(fast_dpll=fast_dpll, fused_frontend=fused_frontend,
+                          fused_pipeline=fused_pipeline, device_crc=device_crc)
         self.carry = init_carry(n_streams, self.device)
         self.counters = [StreamCounters() for _ in range(n_streams)]
 
@@ -184,7 +249,17 @@ class BatchPipeline:
         carry.  Returns (frames, peak) on the device."""
         self.carry, frames, peak = decode_block(
             samples, n_valid, self.carry, frame_slots=self.frame_slots,
-            fused_pipeline=self.fused_pipeline, device_crc=self.device_crc)
+            **self.flags)
+        return frames, peak
+
+    def step_superblock(self, samples: torch.Tensor, n_valid: int,
+                        n_blocks: int) -> Tuple[demod.FrameBatch, torch.Tensor]:
+        """Decode a padded device superblock [S, n_blocks * block_len]
+        (``decode_superblock``), advancing the carry.  Returns (frames
+        stacked on a leading [n_blocks] axis, peak) on the device."""
+        self.carry, frames, peak = decode_superblock(
+            samples, n_valid, self.carry, n_blocks,
+            frame_slots=self.frame_slots, **self.flags)
         return frames, peak
 
     def process(self, samples: np.ndarray) -> List[List[Frame]]:
@@ -197,7 +272,41 @@ class BatchPipeline:
         if n < self.block_len:
             samples = np.pad(samples, ((0, 0), (0, self.block_len - n)))
         frames, _peak = self.step(_upload(samples, self.device), n)
-        return self._account(extract_frames(frames), frames)
+        return self.drain(frames)
+
+    def process_superblock(self, samples: np.ndarray) -> List[List[Frame]]:
+        """samples: int16 [S, n], any n (padded to a multiple of
+        block_len).  Decodes the ceil(n / block_len) blocks with one
+        ``step_superblock`` and drains them in block order.  Returns
+        per-stream CRC-passing frames in arrival order."""
+        s, n = samples.shape
+        if s != self.n_streams:
+            raise ValueError(f"{s} streams, expected {self.n_streams}")
+        k = max(1, -(-n // self.block_len))
+        if n < k * self.block_len:
+            samples = np.pad(samples, ((0, 0), (0, k * self.block_len - n)))
+        frames, _peak = self.step_superblock(_upload(samples, self.device),
+                                             n, k)
+        return self.drain(frames, k)
+
+    def drain(self, frames: demod.FrameBatch, n_blocks: int = 0
+              ) -> List[List[Frame]]:
+        """Host drain and accounting of one step's frames: one block
+        (``n_blocks`` 0) or ``n_blocks`` stacked on a leading axis, read
+        back in one transfer per leaf and drained in block order.
+        Returns per-stream CRC-passing frames in arrival order; raises on
+        frame slot overflow."""
+        if not n_blocks:
+            return self._account(extract_frames(frames), frames)
+        host = demod.FrameBatch(*(x.cpu() for x in frames))
+        merged: List[List[Frame]] = [[] for _ in range(self.n_streams)]
+        for b in range(n_blocks):
+            block = demod.FrameBatch(*(x[b] for x in host))
+            for i, lst in enumerate(extract_frames(block)):
+                merged[i].extend(lst)
+        return self._account(merged, host._replace(
+            lost2=host.lost2.sum(dim=0), dropped=host.dropped.sum(dim=0),
+            crcfail=host.crcfail.sum(dim=0)))
 
     def _account(self, per_stream, frames) -> List[List[Frame]]:
         lost2 = frames.lost2.cpu().numpy()
@@ -223,18 +332,20 @@ class TorchReceiver:
     """Single-channel adapter with the golden receiver's interface
     (``run_block``, ``counters``), for ``DecodeSession`` and the CLI.
 
-    ``fused_pipeline`` selects the fused kernel with dense slots (block
+    ``fast_dpll`` selects the DPLL kernel (B4; block_len a multiple of
+    512), ``fused_pipeline`` the fused kernel with dense slots (B1; block
     length rounded up to a multiple of 512)."""
 
     def __init__(self, name: str = "A", block_len: int = 1020,
-                 frame_slots: int = 16, fused_pipeline: bool = False,
-                 device_crc: bool = False, level_monitor=None,
-                 device: torch.device | str = "cuda"):
+                 frame_slots: int = 16, fast_dpll: bool = False,
+                 fused_pipeline: bool = False, device_crc: bool = False,
+                 level_monitor=None, device: torch.device | str = "cuda"):
         self.name = name
         if fused_pipeline and block_len % 512:
             block_len = -(-block_len // 512) * 512
         self.pipe = BatchPipeline(1, block_len=block_len,
                                   frame_slots=frame_slots,
+                                  fast_dpll=fast_dpll,
                                   fused_pipeline=fused_pipeline,
                                   device_crc=device_crc, device=device)
         self.level_monitor = level_monitor

@@ -21,9 +21,21 @@ def _cli(*args):
         capture_output=True, text=True, timeout=300)
 
 
-@pytest.mark.parametrize("backend", ["exact", "fused"])
+@pytest.mark.parametrize("backend", ["exact", "fast", "fused", "golden"])
 def test_cli_decodes_fixture(backend):
     res = _cli("--device", "cpu", "--backend", backend,
+               "-l", str(FIX / "standard_capture.raw"))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout == (FIX / "standard_capture.stdout").read_text()
+    assert SUMMARY in res.stderr
+
+
+def test_cli_backend_from_config_file(tmp_path):
+    """The ``backend`` directive of a config file that ``gnuais-tpu``
+    reads selects the same backend here."""
+    cfg = tmp_path / "gnuais.conf"
+    cfg.write_text("soundchannels mono\nbackend fast\n")
+    res = _cli("--device", "cpu", "-c", str(cfg),
                "-l", str(FIX / "standard_capture.raw"))
     assert res.returncode == 0, res.stderr
     assert res.stdout == (FIX / "standard_capture.stdout").read_text()
@@ -42,6 +54,16 @@ def test_cli_batch_replicated():
         assert mine == expected
     assert res.stderr.count("Received correctly: 49 packets, wrong CRC: 0 "
                             "packets, wrong size: 0 packets") == 2
+
+
+def test_cli_batch_fast_backend():
+    res = _cli("--device", "cpu", "--backend", "fast",
+               "--batch", str(FIX / "standard_capture.raw"))
+    assert res.returncode == 0, res.stderr
+    tag = "[s0:standard_capture.raw] "
+    assert [l[len(tag):] for l in res.stdout.splitlines()] == \
+        (FIX / "standard_capture.stdout").read_text().splitlines()
+    assert SUMMARY[3:] in res.stderr
 
 
 def test_cli_default_device_is_cuda():

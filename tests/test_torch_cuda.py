@@ -1,5 +1,6 @@
-"""The fused CUDA kernel against its plain PyTorch version on the card,
-bitwise.  Needs an NVIDIA GPU with nvcc (sm_90a): every test here is
+"""The CUDA kernels (B1 ``pipeline_fused_compact``, B3 ``frontend_fused``,
+B4 ``dpll_fused``) against their plain PyTorch versions on the card,
+bitwise, and the paths through them against the CPU.  Needs an NVIDIA GPU with nvcc (sm_90a): every test here is
 marked ``cuda`` and skips without a device.  Imports no JAX, so it runs
 where JAX is not installed:
 
@@ -11,9 +12,10 @@ import pytest
 import torch
 
 from gnuais_tpu_torch import captures
-from gnuais_tpu_torch.ops import crc, fused
+from gnuais_tpu_torch.ops import crc, fir, fused
 from gnuais_tpu_torch.runtime.pipeline import (BatchPipeline, PipelineCarry,
                                                decode_block, init_carry)
+from gnuais_tpu_torch.runtime.streaming import PipelinedDecoder
 
 pytestmark = pytest.mark.cuda
 T = 4096
@@ -151,3 +153,155 @@ def test_batch_pipeline_on_card(cuda):
                     [vars(c) for c in pipe.counters]))
     assert res[0] == res[1]
     assert sum(len(f) for f in res[0][0]) > 0
+
+
+# name: (capture function, S, n_valid, block_base)
+FRONT_CASES = {
+    "frames_S1": (captures.noisy_frames, 1, T, 0),
+    "mixed_tail_S37": (captures.mixed, 37, T - 333, 77),
+    "garbage_nv35_S37": (captures.garbage, 37, 35, 5),
+    "mixed_nv1_S256": (captures.mixed, 256, 1, 0),
+    "mixed_nv0_S256": (captures.mixed, 256, 0, 0),
+    "wrap_S129": (captures.wrong_size_and_crc, 129, T, 2**31 - 1000),
+}
+
+
+def _front_inputs(cuda, case):
+    build, s, nv, base = FRONT_CASES[case]
+    x = torch.from_numpy(build(s, T, seed=len(case))).to(cuda)
+    hist = torch.from_numpy(captures.garbage(s, 36, seed=1)
+                            .astype(np.float32)).to(cuda)
+    return x, nv, hist, init_carry(s, cuda).dpll, base
+
+
+@pytest.mark.parametrize("case", sorted(FRONT_CASES))
+def test_frontend_kernel_matches_plain(cuda, case):
+    x, nv, hist, dpll, base = _front_inputs(cuda, case)
+    before = fused.frontend_fused.launches
+    k = fused.frontend_fused(x, nv, hist, dpll, base)
+    assert fused.frontend_fused.launches == before + 1
+    p = fused.frontend_fused_reference(x, nv, hist, dpll, base)
+    torch.cuda.synchronize()
+    _assert_same(k, p)
+
+
+@pytest.mark.parametrize("case", sorted(FRONT_CASES))
+def test_dpll_kernel_matches_plain(cuda, case):
+    """On the exact FIR of the same captures; the raw bits agree, not
+    only where a bit was emitted."""
+    x, nv, hist, dpll, _ = _front_inputs(cuda, case)
+    filtered, _ = fir.fir_exact(x, hist, n_valid=nv)
+    before = fused.dpll_fused.launches
+    k = fused.dpll_fused(filtered, nv, dpll)
+    assert fused.dpll_fused.launches == before + 1
+    p = fused.dpll_fused_reference(filtered, nv, dpll)
+    torch.cuda.synchronize()
+    _assert_same(k, p)
+
+
+def test_frontend_and_dpll_kernels_chained(cuda):
+    s = 37
+    x = captures.mixed(s, 3 * T, seed=9)
+    kh = ph = init_carry(s, cuda).history
+    kd = pd = kd4 = pd4 = init_carry(s, cuda).dpll
+    for b in range(3):
+        xb = torch.from_numpy(np.ascontiguousarray(x[:, b * T:(b + 1) * T])).to(cuda)
+        nv = T if b < 2 else T - 333
+        k = fused.frontend_fused(xb, nv, kh, kd, b * T)
+        p = fused.frontend_fused_reference(xb, nv, ph, pd, b * T)
+        _assert_same(k, p)
+        kh, kd, ph, pd = k[3], k[4], p[3], p[4]
+        filtered, _ = fir.fir_exact(xb, torch.zeros_like(kh), n_valid=nv)
+        k4 = fused.dpll_fused(filtered, nv, kd4)
+        p4 = fused.dpll_fused_reference(filtered, nv, pd4)
+        _assert_same(k4, p4)
+        kd4, pd4 = k4[2], p4[2]
+
+
+def test_kernels_on_fixture_blocks(cuda):
+    """B1, B3 and B4 on the blocks the command line's kernel backends
+    give them for the fixture: one stream, 1020 samples padded to 1024
+    and a 990-sample tail, each side chained through its own state."""
+    from pathlib import Path
+    audio = np.fromfile(Path(__file__).parent / "fixtures" /
+                        "standard_capture.raw", dtype="<i2")
+    c = init_carry(1, cuda)
+    ck = cp = c
+    kh, kd, ph, pd = c.history, c.dpll, c.history, c.dpll
+    fh, kd4, pd4 = c.history, c.dpll, c.dpll
+    frames = 0
+    for off in range(0, len(audio), 1020):
+        blk = audio[off:off + 1020]
+        nv = len(blk)
+        xb = np.zeros((1, 1024), dtype=np.int16)
+        xb[0, :nv] = blk
+        x = torch.from_numpy(xb).to(cuda)
+        k = fused.pipeline_fused_compact(x, nv, ck.history, ck.dpll, ck.hdlc,
+                                         frame_slots=32)
+        p = fused.pipeline_fused_compact_reference(
+            x, nv, cp.history, cp.dpll, cp.hdlc, frame_slots=32)
+        _assert_same(k, p)
+        ck, cp = PipelineCarry(*k[7:]), PipelineCarry(*p[7:])
+        frames += int(k[0].sum())
+        k = fused.frontend_fused(x, nv, kh, kd)
+        p = fused.frontend_fused_reference(x, nv, ph, pd)
+        _assert_same(k, p)
+        kh, kd, ph, pd = k[3], k[4], p[3], p[4]
+        filtered, fh = fir.fir_exact(x, fh, n_valid=nv)
+        k4 = fused.dpll_fused(filtered, nv, kd4)
+        p4 = fused.dpll_fused_reference(filtered, nv, pd4)
+        _assert_same(k4, p4)
+        kd4, pd4 = k4[2], p4[2]
+    assert nv == 990 and frames == 49
+
+
+def test_new_kernels_reject_mismatched_state(cuda):
+    x = torch.zeros((8, 1024), dtype=torch.int16, device=cuda)
+    before = (fused.frontend_fused.launches, fused.dpll_fused.launches)
+    for c in (init_carry(4, cuda), init_carry(8, "cpu")):
+        with pytest.raises(ValueError):
+            fused.frontend_fused(x, 1024, c.history, c.dpll)
+        with pytest.raises(ValueError):
+            fused.dpll_fused(x.float(), 1024, c.dpll)
+    with pytest.raises(TypeError):
+        fused.dpll_fused(x, 1024, init_carry(8, cuda).dpll)
+    assert (fused.frontend_fused.launches, fused.dpll_fused.launches) == before
+
+
+@pytest.mark.parametrize("flag", ["fast_dpll", "fused_frontend"])
+def test_kernel_branch_on_card_matches_cpu(cuda, flag):
+    s = 64
+    x = captures.mixed(s, 3 * T, seed=12)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        c = init_carry(s, dev)
+        leaves = []
+        for b in range(3):
+            nv = T if b < 2 else T - 333
+            c, f, p = decode_block(
+                torch.from_numpy(np.ascontiguousarray(x[:, b * T:(b + 1) * T])).to(dev),
+                nv, c, frame_slots=16, block_base=b * T, **{flag: True})
+            leaves += [t.cpu() for t in _flat((c, f, p))]
+        out.append(leaves)
+    _assert_same(out[0], out[1])
+
+
+@pytest.mark.parametrize("flags", [
+    dict(fused_frontend=True), dict(fast_dpll=True),
+    dict(fused_pipeline=True, device_crc=True, superblock=3)])
+def test_pipelined_decoder_on_card_matches_cpu(cuda, flags):
+    s = 16
+    x = captures.mixed(s, 5 * T, seed=13)
+    blocks = [x[:, b * T:(b + 1) * T] for b in range(5)]
+    res = []
+    for dev in (cuda, "cpu"):
+        dec = PipelinedDecoder(s, block_len=T, frame_slots=16, depth=2,
+                               device=dev, **flags)
+        sb = dec.superblock
+        subs = [np.concatenate(blocks[i:i + sb], axis=1)
+                for i in range(0, 5, sb)]
+        got = dec.run(subs)
+        res.append(([[[f.payload_bits.tobytes() for f in lst] for lst in r]
+                     for r in got], [vars(c) for c in dec.counters]))
+    assert res[0] == res[1]
+    assert sum(c["receivedframes"] for c in res[0][1]) > s

@@ -20,6 +20,7 @@ MODULES = [
     "gnuais_tpu_torch.captures",
     "gnuais_tpu_torch.convert",
     "gnuais_tpu_torch.cli",
+    "gnuais_tpu_torch.profile_kernels",
     "gnuais_tpu_torch.ops.fir",
     "gnuais_tpu_torch.ops.demod",
     "gnuais_tpu_torch.ops.crc",
@@ -27,6 +28,7 @@ MODULES = [
     "gnuais_tpu_torch.ops._build",
     "gnuais_tpu_torch.runtime.pipeline",
     "gnuais_tpu_torch.runtime.batch",
+    "gnuais_tpu_torch.runtime.streaming",
 ]
 
 
