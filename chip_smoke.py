@@ -7,49 +7,66 @@ Phases, each printed as it passes with its wall time; any failure
 raises and exits non-zero:
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
-2. Build: one nvcc per kernel source of gnuais_tpu_torch/csrc, the three
-   started together, linked into one library (registers and spills
-   printed per kernel).
-3. Kernel B1 against its plain PyTorch version on the card, bitwise,
-   every output and carry leaf: S = 1, 37, 256 at T = 4096 on encoder
+2. Build: one nvcc per kernel source of gnuais_tpu_torch/csrc (B1
+   pipeline_compact.cu, B2 pipeline_fused.cu, B3 frontend.cu, B4
+   dpll.cu), all started together, linked into one library (registers
+   and spills printed per kernel).
+3. Parity at small shapes, each kernel against its plain PyTorch version
+   on the card, bitwise on every output and carry leaf.  B2 and B1 (the
+   exact FIR): S = 1, 37, 256 at T = 4096 (and T = 1000) on encoder
    captures with noise, garbage rows, minimal back-to-back frames,
    wrong-size and CRC-reject frames; n_valid = T-333 and 20; a lost2
    window; frame_slots = 3 (overflow); three blocks chained through the
-   carry.  Then kernels B3 (frontend) and B4 (DPLL) against theirs:
-   S = 1, 37, 256 at T = 4096 on mixed, noisy-frame and garbage
-   captures, n_valid = T, T-333, 35, 1 and 0, nonzero block bases and
-   history, three blocks chained through each side's own state (B4 on
-   the exact FIR of the same captures).  Then all three on every block
-   the fixture gives the command line (phases 5 and 10): S = 1, T =
-   1024, n_valid 1020 and a 990-sample tail, 73 blocks chained.
+   carry.  B2 and B1 with the lobe FIR at S = 4096, T = 8192.  B3
+   (frontend) and B4 (DPLL): S = 1, 37, 256 at T = 4096 on mixed,
+   noisy-frame and garbage captures, n_valid = T, T-333, 35, 1 and 0,
+   nonzero block bases and history, three chained blocks (B4 on the
+   exact FIR of the same captures).  Then B2, B1, B3 and B4 on every
+   block the fixture gives the command line (phases 5 and 12): S = 1,
+   T = 1024, n_valid 1020 and a 990-sample tail, 73 blocks chained.
 4. Main path at full size: BatchPipeline(4096 streams, 49,152-sample
-   blocks, 32 frame slots, fused kernel B1, CRC on the device) over
-   three chained blocks; every stream's decoded payloads equal the
-   encoded ones in every block.
+   blocks, 32 frame slots, fused_pipeline, CRC on the device), which runs
+   kernel B2 and the candidate compaction, over three chained blocks;
+   every stream's decoded payloads equal the encoded ones in every block.
 5. End to end: the command line (``gnuais-tpu-torch -l
-   tests/fixtures/standard_capture.raw --backend fused``) reproduces the
-   capture's stdout byte for byte with counters (49, 0, 0).
-6. The first fleet block at full size through B1 and through its plain
-   version: bitwise equal on every output and carry leaf, and B1's carry
-   equal to the main path's; times of one full block (the kernel, the
-   whole decode_block step and the plain version).
-7. Path S: PipelinedDecoder(4096 streams, 49,152-sample blocks,
-   fused_frontend, depth 2) over the fleet blocks: kernel B3 and the
+   tests/fixtures/standard_capture.raw --backend fused``, kernel B2)
+   reproduces the capture's stdout byte for byte with counters (49, 0,
+   0).
+6. The first fleet block at full size through B2 and B1, with the exact
+   and with the lobe FIR, row-major and pretiled (time-major, as phase
+   7's input), and through their plain versions: bitwise equal on
+   every output and carry leaf, B2's candidates compacted equal
+   to B1's dense slots, B2's carry equal to the main path's; times of
+   each wrapper, of the decode_block step and of the plain versions, and
+   each kernel's bound.
+7. Flagship: bench.py's bit-exact flagship configuration at full width,
+   12 copies of a 4-payload fleet block tiled time-major into one
+   [589,824, 4096] int16 input and decoded by one pretiled decode_block
+   call with kernel_compact (one launch of B1); frames and carry equal
+   the row-major path's 12 chained blocks, every payload equals the
+   encoded one.
+8. Lobe paths: BatchPipeline(fused_pipeline, device_crc, lobe_fir) over
+   the three fleet blocks with B2 and with kernel_compact (B1); every
+   payload equals the encoded one.
+9. Path S: PipelinedDecoder(4096 streams, 49,152-sample blocks,
+   fused_frontend, depth 2) over two fleet blocks: kernel B3 and the
    plain deframer; every payload equal to the encoded ones, counters
    (8 x blocks, 0, 0).
-8. B3 and B4 on the first fleet block at full size against their plain
-   versions, bitwise; their times, and Path S's split of one block
-   (kernel, hdlc_scan, drain).
-9. Path S with B1: PipelinedDecoder(fused_pipeline, device_crc,
-   depth 2) over the three fleet blocks one by one, and with superblock
-   3 as one submission; frames and counters equal phase 4's; wall times.
-10. Path F: ``gnuais-tpu-torch -l tests/fixtures/standard_capture.raw
+10. B3 and B4 on the first fleet block at full size against their plain
+   versions, bitwise; their times and bounds, and Path S's split of one
+   block (kernel, hdlc_scan, drain).
+11. PipelinedDecoder(fused_pipeline, device_crc, depth 2), kernel B2,
+   over the three fleet blocks one by one, and with superblock 3 as one
+   submission; frames and counters equal phase 4's; wall times.
+12. Path F: ``gnuais-tpu-torch -l tests/fixtures/standard_capture.raw
    --backend fast`` (kernel B4) reproduces the stdout byte for byte
    with counters (49, 0, 0).
-Then one JSON line of the three kernels (launch counts from their own
-paths: B1 over phases 4-5, B3 over phase 7, B4 over phase 10; times at
-the fleet size), a check that no JAX module was imported, the card's
-name and power limit, and the result line {"ok": true, "device": {...}}.
+Then one JSON line of the six kernel modes (launch counts from their own
+paths, each count set to 0 just before its path: B2 over phases 4-5, B1
+in phase 7's pretiled call, B2 lobe and B1 lobe over phase 8, B3 over
+phase 9, B4 over phase 12; times and bounds at the fleet size), a check
+that neither JAX nor the JAX package was imported, the card's name and
+power limit, and the result line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is available or
 when run outside a checkout of the repository.
@@ -72,10 +89,22 @@ FLEET_STREAMS = 4096
 FLEET_BLOCK = 49_152
 FLEET_SLOTS = 32
 FLEET_BLOCKS = 3
+PATH_S_BLOCKS = 2        # Path S's depth: its plain deframer takes ~17 s a block
 VARIANTS = 32            # distinct captures per block, cycled over streams
 CLI_BLOCK = 1020         # the CLI's file-mode block: 1024 in whole 5-sample bits
 KERNEL_BLOCK = 1024      # the kernel backends pad it to a multiple of 512
 FIXTURE_SLOTS = 32       # the config's default frameslots
+FLAGSHIP_COPIES = 12     # bench.py's bit-exact flagship: superblock 12,
+FLAGSHIP_PAYLOADS = 4    # 4 payloads per stream and block,
+FLAGSHIP_SLOTS = 64      # 64 frame slots over the superblock
+# the bound's rates: one H100 SXM's HBM and its float32 rate outside the
+# tensor cores (NVIDIA's data sheet, at the 700 W power limit)
+HBM_TB_S = 3.35
+F32_TFLOPS = 67.0
+# float32 operations per valid sample of each FIR: the exact FIR's 36
+# multiplies and 35 adds, the lobe FIR's 8 pair adds, 8 multiplies and 7
+# adds; the integer DPLL and deframer work is not counted
+FIR_FLOPS = {"vpu": 71, "lobe": 23}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -169,26 +198,33 @@ def phase_build():
         print("  " + line.strip(), flush=True)
 
 
-def run_pair(x_np, nv, carry, fs, base=0, window=(None, None),
-             plain_carry=None):
-    """The kernel and its plain version on the same device inputs (the
-    plain version from ``plain_carry`` when given)."""
+def run_both(x, nv, carry, fs, base=0, window=(None, None),
+             plain_carry=None, fir_mode="vpu"):
+    """Kernels B2 and B1 and their plain versions on the same device
+    inputs (the plain versions from ``plain_carry`` when given): B2's
+    plain version is ``pipeline_fused_reference``, B1's that run's
+    ``compact_slots``.  Returns (B2, B2 plain, B1, B1 plain)."""
     import torch
     from gnuais_tpu_torch.ops import fused
-    x = torch.from_numpy(x_np).cuda()
     lo, hi = window
-    kw = dict(frame_slots=fs, block_base=base, lost2_lo=lo, lost2_hi=hi)
-    k = fused.pipeline_fused_compact(x, nv, carry.history, carry.dpll,
-                                     carry.hdlc, **kw)
+    kw = dict(block_base=base, fir_mode=fir_mode, lost2_lo=lo, lost2_hi=hi)
+    k2 = fused.pipeline_fused(x, nv, carry.history, carry.dpll, carry.hdlc,
+                              **kw)
+    k1 = fused.pipeline_fused_compact(x, nv, carry.history, carry.dpll,
+                                      carry.hdlc, frame_slots=fs, **kw)
     torch.cuda.synchronize()
     pc = carry if plain_carry is None else plain_carry
-    p = fused.pipeline_fused_compact_reference(x, nv, pc.history, pc.dpll,
-                                               pc.hdlc, **kw)
+    p2 = fused.pipeline_fused_reference(x, nv, pc.history, pc.dpll, pc.hdlc,
+                                        **kw)
+    p1 = fused.compact_slots(p2, fs)
     torch.cuda.synchronize()
-    return k, p
+    return k2, p2, k1, p1
 
 
-def phase_parity() -> float:
+def phase_parity():
+    """B2 and B1 against their plain versions at small shapes; returns
+    the max abs error of each."""
+    import torch
     from gnuais_tpu_torch import captures
     from gnuais_tpu_torch.runtime.pipeline import PipelineCarry, init_carry
     t = 4096
@@ -204,76 +240,133 @@ def phase_parity() -> float:
         ("S=37 garbage", captures.garbage(37, t, seed=6), t, 8, 0, None),
         ("S=256 wrong-size and CRC rejects",
          captures.wrong_size_and_crc(256, t, seed=7), t, 24, 0, None),
+        ("S=37 mixed T=1000", captures.mixed(37, 1000, seed=9), 1000, 8, 5,
+         None),
     ]
-    err = 0.0
+    err2 = err1 = 0.0
     for name, x, nv, fs, base, window in cases:
-        k, p = run_pair(x, nv, init_carry(x.shape[0], "cuda"), fs, base,
-                        window or (None, None))
-        err = max(err, compare(k, p, name))
-        print(f"[3 parity] {name}: bitwise equal, frames "
-              f"{int(k[0].sum())}, dropped {int((k[0] - fs).clamp(min=0).sum())}, "
-              f"lost2 {int(k[5].sum())}, over {int(k[6].sum())}", flush=True)
+        k2, p2, k1, p1 = run_both(torch.from_numpy(x).cuda(), nv,
+                                  init_carry(x.shape[0], "cuda"), fs, base,
+                                  window or (None, None))
+        err2 = max(err2, compare(k2, p2, f"B2 {name}"))
+        err1 = max(err1, compare(k1, p1, f"B1 {name}"))
+        print(f"[3 parity] {name}: B2 and B1 bitwise equal to plain, "
+              f"candidates {int(k2[0].sum())} of {k2[0].numel()} slots, frames "
+              f"{int(k1[0].sum())}, dropped {int((k1[0] - fs).clamp(min=0).sum())}, "
+              f"lost2 {int(k1[5].sum())}, over {int(k1[6].sum())}", flush=True)
     # three blocks chained through each side's own carry
     x = captures.mixed(37, 3 * t, seed=8)
+    # (the kernels from the kernels' carry, the plain versions from theirs)
     ck = cp = init_carry(37, "cuda")
     for b in range(3):
         nv = t if b < 2 else t - 333
-        xb = np.ascontiguousarray(x[:, b * t:(b + 1) * t])
-        k, p = run_pair(xb, nv, ck, 8, base=b * t, plain_carry=cp)
-        err = max(err, compare(k, p, f"chained block {b}"))
-        ck = PipelineCarry(*k[7:])
-        cp = PipelineCarry(*p[7:])
-        print(f"[3 parity] chained block {b}: bitwise equal, frames "
-              f"{int(k[0].sum())}", flush=True)
-    return err
+        xb = torch.from_numpy(np.ascontiguousarray(x[:, b * t:(b + 1) * t])).cuda()
+        k2, p2, k1, p1 = run_both(xb, nv, ck, 8, base=b * t, plain_carry=cp)
+        err2 = max(err2, compare(k2, p2, f"B2 chained block {b}"))
+        err1 = max(err1, compare(k1, p1, f"B1 chained block {b}"))
+        compare(k1[7:], k2[7:], f"B1 carry vs B2 carry, chained block {b}")
+        ck, cp = PipelineCarry(*k2[7:]), PipelineCarry(*p2[7:])
+        print(f"[3 parity] chained block {b}: B2 and B1 bitwise equal to "
+              f"plain, frames {int(k1[0].sum())}", flush=True)
+    return err2, err1
+
+
+def phase_parity_lobe():
+    """(c) B2 and B1 with the lobe FIR against their plain versions at
+    S = 4096, T = 8192 (the plain version's cost grows with T, not S),
+    from a carried history of noise; returns the max abs error of each."""
+    import torch
+    from gnuais_tpu_torch import captures
+    from gnuais_tpu_torch.runtime.pipeline import init_carry
+    s, t = FLEET_STREAMS, 8192
+    rows = np.concatenate([captures.mixed(64, t, seed=60 + i)
+                           for i in range(s // 64)])
+    x = torch.from_numpy(rows).cuda()
+    c = init_carry(s, "cuda")
+    c = c._replace(history=torch.from_numpy(
+        captures.garbage(s, 36, seed=61).astype(np.float32)).cuda())
+    k2, p2, k1, p1 = run_both(x, t - 333, c, 16, base=12345,
+                              window=(12345 + 2000, 12345 + 6000),
+                              fir_mode="lobe")
+    err2 = compare(k2, p2, "B2 lobe S=4096 T=8192")
+    err1 = compare(k1, p1, "B1 lobe S=4096 T=8192")
+    print(f"[3 parity lobe] S={s} T={t} n_valid=T-333: B2 lobe and B1 lobe "
+          f"bitwise equal to plain, frames {int(k1[0].sum())}, lost2 "
+          f"{int(k1[5].sum())}", flush=True)
+    return err2, err1
+
+
+def fleet_block(b: int, n_payloads: int, g):
+    """Block ``b`` of the fleet, [4096, 49152] int16 on the card, and per
+    stream the encoded payloads.  Stream s plays variant s % VARIANTS of
+    the block (an encoder capture of ``n_payloads`` random payloads),
+    shifted within the block so that its frames stay inside it, plus
+    Gaussian noise from the generator ``g``."""
+    import torch
+    from gnuais_tpu_torch import captures
+    s = torch.arange(FLEET_STREAMS, device="cuda")
+    tt = torch.arange(FLEET_BLOCK, device="cuda")
+    base = np.empty((VARIANTS, FLEET_BLOCK), dtype=np.int16)
+    lens, pays = [], []
+    for v in range(VARIANTS):
+        audio, payloads = captures.payload_capture(
+            np.random.default_rng([SEED, b, v]), n_payloads, gap_bits=64)
+        check(len(audio) < FLEET_BLOCK // 2, "variant too long")
+        base[v] = audio[-1]                 # idle level after the last frame
+        base[v, :len(audio)] = audio
+        lens.append(len(audio))
+        pays.append(payloads)
+    # the bit grid stays aligned with the stream's absolute sample
+    # index (shifts of whole 5-sample bits, after the block start's
+    # own offset): at some sub-bit phases against the carried DPLL
+    # phase the reference receiver itself misses frames of these
+    # rectangular synthetic pulses (the golden model agrees), which
+    # would make "decoded == encoded" a property of the input
+    room = (FLEET_BLOCK - max(lens)) // 5 - 1
+    shift = 5 * ((s // VARIANTS * 97 + b * 13) % room) \
+        + (-b * FLEET_BLOCK) % 5
+    var = s % VARIANTS
+    dev = torch.from_numpy(base).cuda()[var]                   # [S, T]
+    idx = (tt[None, :] - shift[:, None]) % FLEET_BLOCK
+    x = torch.gather(dev, 1, idx).to(torch.float32)
+    del dev, idx
+    x += 300.0 * torch.randn(x.shape, generator=g, device="cuda")
+    x = x.round_().clamp_(-32768, 32767).to(torch.int16)
+    return x, [pays[int(v)] for v in var.tolist()]
 
 
 def fleet_blocks():
-    """FLEET_BLOCKS blocks of [4096, 49152] int16 (on the host), and per
-    block and stream the encoded payloads.  Stream s plays variant
-    s % VARIANTS of the block, shifted within the block so that its
-    frames stay inside it, plus Gaussian noise (made on the card from
-    SEED)."""
+    """FLEET_BLOCKS fleet blocks of 8 payloads per stream, on the host,
+    and their encoded payloads (noise made on the card from SEED)."""
     import torch
-    from gnuais_tpu_torch import captures
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
-    s = torch.arange(FLEET_STREAMS, device="cuda")
-    tt = torch.arange(FLEET_BLOCK, device="cuda")
     blocks, expected = [], []
     for b in range(FLEET_BLOCKS):
-        base = np.empty((VARIANTS, FLEET_BLOCK), dtype=np.int16)
-        lens, pays = [], []
-        for v in range(VARIANTS):
-            audio, payloads = captures.payload_capture(
-                np.random.default_rng([SEED, b, v]), 8, gap_bits=64)
-            check(len(audio) < FLEET_BLOCK // 2, "variant too long")
-            base[v] = audio[-1]                 # idle level after the last frame
-            base[v, :len(audio)] = audio
-            lens.append(len(audio))
-            pays.append(payloads)
-        # the bit grid stays aligned with the stream's absolute sample
-        # index (shifts of whole 5-sample bits, after the block start's
-        # own offset): at some sub-bit phases against the carried DPLL
-        # phase the reference receiver itself misses frames of these
-        # rectangular synthetic pulses (the golden model agrees), which
-        # would make "decoded == encoded" a property of the input
-        room = (FLEET_BLOCK - max(lens)) // 5 - 1
-        shift = 5 * ((s // VARIANTS * 97 + b * 13) % room) \
-            + (-b * FLEET_BLOCK) % 5
-        var = s % VARIANTS
-        dev = torch.from_numpy(base).cuda()[var]                   # [S, T]
-        idx = (tt[None, :] - shift[:, None]) % FLEET_BLOCK
-        x = torch.gather(dev, 1, idx).to(torch.float32)
-        x += 300.0 * torch.randn(x.shape, generator=g, device="cuda")
-        x = x.round_().clamp_(-32768, 32767).to(torch.int16)
+        x, want = fleet_block(b, 8, g)
         blocks.append(x.cpu().numpy())
-        expected.append([pays[int(v)] for v in var.tolist()])
-        del dev, idx, x
+        expected.append(want)
     return blocks, expected
 
 
+def check_payloads(per_stream, want, what: str) -> int:
+    """Every stream's decoded payloads equal its encoded ones, in order;
+    returns the number of frames."""
+    n = 0
+    for i, (frames, pays) in enumerate(zip(per_stream, want)):
+        check(len(frames) == len(pays),
+              f"{what} stream {i}: {len(frames)} frames, {len(pays)} sent")
+        for fr, pay in zip(frames, pays):
+            check(np.array_equal(fr.payload_bits[:fr.bufferlen], pay),
+                  f"{what} stream {i}: payload differs")
+        n += len(frames)
+    return n
+
+
 def phase_main_path():
+    """The main path: BatchPipeline with the fused step (kernel B2, the
+    candidate compaction and the CRC filter on the device) over the
+    three fleet blocks."""
     import torch
     from gnuais_tpu_torch.runtime.pipeline import BatchPipeline
     blocks, expected = fleet_blocks()
@@ -290,15 +383,7 @@ def phase_main_path():
         times.append(time.perf_counter() - t0)
         if b == 0:
             carry1 = pipe.carry
-        n_frames = 0
-        for i, (frames, want) in enumerate(zip(per_stream, expected[b])):
-            check(len(frames) == len(want),
-                  f"block {b} stream {i}: {len(frames)} frames, "
-                  f"{len(want)} sent")
-            for fr, pay in zip(frames, want):
-                check(np.array_equal(fr.payload_bits[:fr.bufferlen], pay),
-                      f"block {b} stream {i}: payload differs")
-            n_frames += len(frames)
+        n_frames = check_payloads(per_stream, expected[b], f"block {b}")
         for i, lst in enumerate(payloads(per_stream)):
             got[i].extend(lst)
         print(f"[4 main path] block {b}: {FLEET_STREAMS} streams x "
@@ -349,37 +434,90 @@ def phase_end_to_end(backend: str, label: str):
           f"counters (49, 0, 0)", flush=True)
 
 
-def phase_full_block(x0, carry0, carry1):
-    """The kernel against its plain version on the main path's first
-    block at full size, every output and carry leaf, and the kernel's
-    carry against the main path's; with the times of the kernel, the
-    whole step and the plain version (not part of the counted main
-    path)."""
+def bound(tensors, flops: float):
+    """The least time the card could take for a call: the larger of the
+    bytes of ``tensors`` (its inputs and outputs, each counted once) over
+    HBM_TB_S and ``flops`` float32 operations over F32_TFLOPS.  Returns
+    (ms, "bytes" or "operations")."""
+    import torch
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(tensors)
+                 if isinstance(t, torch.Tensor))
+    by_bytes = nbytes / (HBM_TB_S * 1e9)
+    by_ops = flops / (F32_TFLOPS * 1e9)
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def phase_full_block(x0, carry0, carry1, fir_mode):
+    """(a, b) Kernels B2 and B1 with the ``fir_mode`` FIR against their
+    plain versions on the main path's first block at full size, every
+    output and carry leaf, from the row-major block and from the same
+    block pretiled (time-major, the layout of phase 7's flagship input,
+    assume_full); B1 against B2's candidates compacted; for
+    "vpu" B2's carry against the main path's.  With the times of both
+    wrappers, the fused decode_block step and the plain versions (one
+    run of B2's plain version; B1's adds its compaction), and each
+    kernel's bound.  Returns {kernel: dict of the kernels line}."""
     import torch
     from gnuais_tpu_torch.ops import fused
     from gnuais_tpu_torch.runtime.pipeline import decode_block
 
     x = torch.from_numpy(x0).cuda()
     args = (x, FLEET_BLOCK, carry0.history, carry0.dpll, carry0.hdlc)
-    ms, k = device_ms(lambda: fused.pipeline_fused_compact(
-        *args, frame_slots=FLEET_SLOTS))
+    ms2, k2 = device_ms(lambda: fused.pipeline_fused(*args, fir_mode=fir_mode))
+    ms1, k1 = device_ms(lambda: fused.pipeline_fused_compact(
+        *args, frame_slots=FLEET_SLOTS, fir_mode=fir_mode))
+    # the same block time-major, as the pretiled flagship feeds B1
+    tiled = fused.tile_superblock(x, 1)[0]
+    pre = dict(fir_mode=fir_mode, assume_full=True,
+               pretiled_streams=FLEET_STREAMS)
+    targs = (tiled,) + args[1:]
+    pre2_ms, t2 = device_ms(lambda: fused.pipeline_fused(*targs, **pre))
+    pre1_ms, t1 = device_ms(lambda: fused.pipeline_fused_compact(
+        *targs, frame_slots=FLEET_SLOTS, **pre))
     step_ms, _ = device_ms(lambda: decode_block(
         x, FLEET_BLOCK, carry0, frame_slots=FLEET_SLOTS, fused_pipeline=True,
-        device_crc=True))
-    plain_ms, p = host_ms(lambda: fused.pipeline_fused_compact_reference(
-        *args, frame_slots=FLEET_SLOTS))
-    what = f"block 0 at S={FLEET_STREAMS} T={FLEET_BLOCK} F={FLEET_SLOTS}"
-    err = compare(k, p, f"{what}, kernel vs plain")
-    err = max(err, compare(k[7:], tuple(carry1),
-                           f"{what}, kernel carry vs main path carry"))
-    print(f"[6 full block] {what}: kernel == plain on all {len(leaves(k))} "
-          f"output and carry leaves ({int(k[0].sum())} frames), and == the "
-          f"main path's carry, bitwise", flush=True)
-    print(f"[6 full block] S={FLEET_STREAMS} T={FLEET_BLOCK}: kernel wrapper "
-          f"{ms:.3f} ms, decode_block step (kernel, CRC filter, compaction) "
-          f"{step_ms:.3f} ms (medians of 5, CUDA events); plain version "
-          f"{plain_ms:.1f} ms (one run, host clock)", flush=True)
-    return err, ms, plain_ms
+        device_crc=True, lobe_fir=fir_mode == "lobe"))
+    plain2, p2 = host_ms(lambda: fused.pipeline_fused_reference(
+        *args, fir_mode=fir_mode))
+    compact_ms, p1 = host_ms(lambda: fused.compact_slots(p2, FLEET_SLOTS))
+    what = (f"{fir_mode} block 0 at S={FLEET_STREAMS} T={FLEET_BLOCK} "
+            f"F={FLEET_SLOTS}")
+    err2 = max(compare(k2, p2, f"{what}, B2 vs plain"),
+               compare(t2, p2, f"{what}, pretiled B2 vs plain"))
+    err1 = max(compare(k1, p1, f"{what}, B1 vs plain"),
+               compare(t1, p1, f"{what}, pretiled B1 vs plain"))
+    compare(fused.compact_slots(k2, FLEET_SLOTS), k1,
+            f"{what}, B2's candidates compacted vs B1")
+    if carry1 is not None:
+        compare(k2[7:], tuple(carry1), f"{what}, B2 carry vs main path carry")
+    print(f"[6 full block] {what}: B2 == plain on all {len(leaves(k2))} output "
+          f"and carry leaves ({int(k2[0].sum())} candidates in "
+          f"{k2[0].shape[1]} slots per stream), B1 == plain on all "
+          f"{len(leaves(k1))} ({int(k1[0].sum())} frames), both also from "
+          f"the pretiled [{FLEET_BLOCK}, {FLEET_STREAMS}] block, B2's "
+          f"candidates compacted == B1's dense slots"
+          + (", B2's carry == the main path's" if carry1 is not None else "")
+          + ", bitwise", flush=True)
+    flops = FIR_FLOPS[fir_mode] * FLEET_STREAMS * FLEET_BLOCK
+    out = {}
+    for name, ms, k, plain_ms, err in (("B2", ms2, k2, plain2, err2),
+                                       ("B1", ms1, k1, plain2 + compact_ms,
+                                        err1)):
+        b_ms, b_by = bound((args, k), flops)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+    print(f"[6 full block] {fir_mode} S={FLEET_STREAMS} T={FLEET_BLOCK}: B2 "
+          f"wrapper {ms2:.3f} ms (bound {out['B2']['bound_ms']:.3f} ms by "
+          f"{out['B2']['bound_by']}), B1 wrapper {ms1:.3f} ms (bound "
+          f"{out['B1']['bound_ms']:.3f} ms by {out['B1']['bound_by']}), "
+          f"decode_block step (B2, compaction, CRC filter) {step_ms:.3f} ms, "
+          f"pretiled wrappers (no transpose) B2 {pre2_ms:.3f} ms and B1 "
+          f"{pre1_ms:.3f} ms (medians of 5, CUDA events); plain B2 "
+          f"{plain2:.1f} ms, its "
+          f"compaction to B1's slots {compact_ms:.1f} ms (one run, host "
+          f"clock)", flush=True)
+    return out
 
 
 def phase_parity_front():
@@ -439,23 +577,26 @@ def phase_parity_front():
 
 
 def phase_parity_fixture(dev: str = "cuda"):
-    """B1, B3 and B4 against their plain versions on every block that
-    the command line's kernel backends (phases 5 and 10) give them for
-    the fixture: S = 1, blocks of CLI_BLOCK samples padded to
+    """B2, B1, B3 and B4 against their plain versions on every block
+    that the command line's kernel backends (phases 5 and 12) give them
+    for the fixture: S = 1, blocks of CLI_BLOCK samples padded to
     KERNEL_BLOCK with zeros and the short tail, each side chained
     through its own state from block to block and at block_base 0, as
-    ``BatchPipeline.process`` runs them.  B4 takes the exact FIR of each
-    block, the FIR history carried.  Returns the max abs error of each."""
+    ``BatchPipeline.process`` runs them.  B1 (the command line's fused
+    step before B2, and ``kernel_compact``'s) lands the frames at the
+    running count in FIXTURE_SLOTS slots; B4 takes the exact FIR of
+    each block, the FIR history carried.  Returns the max abs error of
+    each."""
     import torch
     from gnuais_tpu_torch.ops import fir, fused
     from gnuais_tpu_torch.runtime.pipeline import PipelineCarry, init_carry
     audio = np.fromfile(REPO / "tests" / "fixtures" / "standard_capture.raw",
                         dtype="<i2")
     c = init_carry(1, dev)
-    ck = cp = c                                  # B1
+    ck = cp = ck1 = c                            # B2, its plain version, B1
     kh, kd, ph, pd = c.history, c.dpll, c.history, c.dpll   # B3
     fh, kd4, pd4 = c.history, c.dpll, c.dpll     # B4, FIR history shared
-    err1 = err3 = err4 = 0.0
+    err2 = err1 = err3 = err4 = 0.0
     n_valid, frames, bits = [], 0, 0
     for b, off in enumerate(range(0, len(audio), CLI_BLOCK)):
         blk = audio[off:off + CLI_BLOCK]
@@ -465,13 +606,15 @@ def phase_parity_fixture(dev: str = "cuda"):
         xb[0, :nv] = blk
         x = torch.from_numpy(xb).to(dev)
         what = f"fixture block {b} (n_valid {nv})"
-        args = dict(frame_slots=FIXTURE_SLOTS)
-        k = fused.pipeline_fused_compact(x, nv, ck.history, ck.dpll, ck.hdlc,
-                                         **args)
-        p = fused.pipeline_fused_compact_reference(x, nv, cp.history, cp.dpll,
-                                                   cp.hdlc, **args)
-        err1 = max(err1, compare(k, p, f"B1 {what}"))
+        k = fused.pipeline_fused(x, nv, ck.history, ck.dpll, ck.hdlc)
+        p = fused.pipeline_fused_reference(x, nv, cp.history, cp.dpll, cp.hdlc)
+        err2 = max(err2, compare(k, p, f"B2 {what}"))
+        k1 = fused.pipeline_fused_compact(x, nv, ck1.history, ck1.dpll,
+                                          ck1.hdlc, frame_slots=FIXTURE_SLOTS)
+        err1 = max(err1, compare(k1, fused.compact_slots(p, FIXTURE_SLOTS),
+                                 f"B1 {what}"))
         ck, cp = PipelineCarry(*k[7:]), PipelineCarry(*p[7:])
+        ck1 = PipelineCarry(*k1[7:])
         frames += int(k[0].sum())
         k = fused.frontend_fused(x, nv, kh, kd)
         p = fused.frontend_fused_reference(x, nv, ph, pd)
@@ -483,32 +626,24 @@ def phase_parity_fixture(dev: str = "cuda"):
         err4 = max(err4, compare(k4, p4, f"B4 {what}"))
         kd4, pd4 = k4[2], p4[2]
         bits += int(k4[0].sum())
-    print(f"[3 parity fixture] B1, B3 and B4 == plain, bitwise, on all "
+    print(f"[3 parity fixture] B2, B1, B3 and B4 == plain, bitwise, on all "
           f"{len(n_valid)} chained blocks of the fixture at S=1 "
           f"T={KERNEL_BLOCK} (n_valid {n_valid[0]} x {len(n_valid) - 1}, "
           f"then {n_valid[-1]}): {frames} frames, {bits} bits", flush=True)
-    return err1, err3, err4
+    return err2, err1, err3, err4
 
 
 def phase_path_s(blocks, expected):
     """Path S: the pipelined streaming decoder through kernel B3 and the
-    plain deframer, at full width.  Runs two blocks instead of three when
-    three would take more than about 90 s."""
+    plain deframer, at full width, over the first PATH_S_BLOCKS fleet
+    blocks (each takes its plain deframer ~17 s)."""
     from gnuais_tpu_torch.runtime.streaming import PipelinedDecoder
     dec = PipelinedDecoder(FLEET_STREAMS, block_len=FLEET_BLOCK,
                            frame_slots=FLEET_SLOTS, fused_frontend=True,
                            depth=2, device="cuda")
+    n_run = PATH_S_BLOCKS
     t0 = time.perf_counter()
-    results, n_run = [], 0
-    for b, x in enumerate(blocks):
-        r = dec.submit(x)
-        if r is not None:
-            results.append(r)
-        n_run += 1
-        spent = time.perf_counter() - t0
-        if n_run == 2 and spent * 3 / 2 > 90:
-            break
-    results.extend(dec.flush())
+    results = dec.run(blocks[:n_run])
     wall = time.perf_counter() - t0
     check(len(results) == n_run, f"{len(results)} results for {n_run} blocks")
     for b, per_stream in enumerate(results):
@@ -522,14 +657,11 @@ def phase_path_s(blocks, expected):
     for i, c in enumerate(dec.counters):
         check((c.receivedframes, c.lostframes, c.lostframes2)
               == (8 * n_run, 0, 0), f"path S stream {i} counters {c}")
-    note = "" if n_run == len(blocks) else (
-        f" (two chained blocks, not three: three would take "
-        f"{wall * 3 / 2:.0f} s through the plain deframer)")
-    print(f"[7 path S] PipelinedDecoder(fused_frontend, depth 2): "
-          f"{n_run} blocks of {FLEET_STREAMS} x {FLEET_BLOCK}, every payload "
-          f"equals the encoded ones, counters ({8 * n_run}, 0, 0) on every "
-          f"stream; {wall:.1f} s in all, {wall / n_run * 1e3:.1f} ms per "
-          f"block{note}", flush=True)
+    print(f"[9 path S] PipelinedDecoder(fused_frontend, depth 2): "
+          f"{n_run} chained blocks of {FLEET_STREAMS} x {FLEET_BLOCK}, every "
+          f"payload equals the encoded ones, counters ({8 * n_run}, 0, 0) on "
+          f"every stream; {wall:.1f} s in all, {wall / n_run * 1e3:.1f} ms "
+          f"per block", flush=True)
     return wall / n_run
 
 
@@ -553,11 +685,15 @@ def phase_front_full(x0):
     plain4, p4 = host_ms(lambda: fused.dpll_fused_reference(
         filtered, FLEET_BLOCK, c.dpll))
     err4 = compare(k4, p4, f"B4 {what}")
-    print(f"[8 full block] {what}: B3 == plain on all {len(leaves(k))} "
+    print(f"[10 full block] {what}: B3 == plain on all {len(leaves(k))} "
           f"outputs ({int(k[1].sum())} bit slots), B4 == plain on all "
           f"{len(leaves(k4))} outputs ({int(k4[0].sum())} bits), bitwise",
           flush=True)
-    print(f"[8 full block] B3 wrapper {ms3:.3f} ms, B4 wrapper {ms4:.3f} ms "
+    n = FLEET_STREAMS * FLEET_BLOCK
+    bound3, by3 = bound((args3, k), FIR_FLOPS["vpu"] * n)
+    bound4, by4 = bound((filtered, c.dpll, k4), n)    # one compare a sample
+    print(f"[10 full block] B3 wrapper {ms3:.3f} ms (bound {bound3:.3f} ms by "
+          f"{by3}), B4 wrapper {ms4:.3f} ms (bound {bound4:.3f} ms by {by4}) "
           f"(medians of 5, CUDA events); plain versions {plain3:.1f} ms and "
           f"{plain4:.1f} ms (one run each, host clock)", flush=True)
     hdlc_ms, (_, frames) = host_ms(lambda: demod.hdlc_scan(
@@ -567,16 +703,19 @@ def phase_front_full(x0):
                          frame_slots=FLEET_SLOTS, device="cuda")
     drain_ms, per_stream = host_ms(lambda: pipe.drain(frames))
     n = sum(len(lst) for lst in per_stream)
-    print(f"[8 full block] path S split of {what}: B3 {ms3:.3f} ms, plain "
+    print(f"[10 full block] path S split of {what}: B3 {ms3:.3f} ms, plain "
           f"deframer hdlc_scan {hdlc_ms:.1f} ms, host drain {drain_ms:.1f} ms "
           f"({n} frames); hdlc_scan is "
           f"{100 * hdlc_ms / (ms3 + hdlc_ms + drain_ms):.1f} % of the three",
           flush=True)
-    return err3, ms3, plain3, err4, ms4, plain4
+    return (dict(max_abs_err=err3, ms=ms3, plain_ms=plain3, bound_ms=bound3,
+                 bound_by=by3),
+            dict(max_abs_err=err4, ms=ms4, plain_ms=plain4, bound_ms=bound4,
+                 bound_by=by4))
 
 
 def phase_superblock(blocks, main_result, block_s):
-    """The pipelined decoder with kernel B1 over the three fleet blocks,
+    """The pipelined decoder with kernel B2 over the three fleet blocks,
     block by block (depth 2) and as one superblock submission; frames
     and counters equal the main path's.  Wall times include the first
     use of each decoder's pinned buffers."""
@@ -599,16 +738,134 @@ def phase_superblock(blocks, main_result, block_s):
         check(merged == want, f"{what}: frames differ from the main path's")
         check([vars(c) for c in dec.counters] == want_counters,
               f"{what}: counters differ from the main path's")
-        print(f"[9 superblock] PipelinedDecoder(fused_pipeline, device_crc, "
+        print(f"[11 superblock] PipelinedDecoder(fused_pipeline, device_crc, "
               f"depth 2, {what}) over {len(blocks)} blocks of "
               f"[{FLEET_STREAMS}, {FLEET_BLOCK}]: frames and counters == "
               f"phase 4's; wall {walls[-1] * 1e3:.1f} ms (one run)",
               flush=True)
-    print(f"[9 superblock] beside phase 4's median process() "
+    print(f"[11 superblock] beside phase 4's median process() "
           f"{block_s * 1e3:.1f} ms per block, "
           f"{len(blocks) * block_s * 1e3:.1f} ms for {len(blocks)}",
           flush=True)
     return walls
+
+
+def concat_frames(per_block, slots: int):
+    """Per-block FrameBatches of one stream set, their frames laid one
+    block after the other into ``slots`` dense slots per stream: the
+    FrameBatch one call over the blocks would give."""
+    import torch
+    from gnuais_tpu_torch.ops import demod
+    s = per_block[0].count.shape[0]
+    out = demod.init_frames(s, slots, "cuda")
+    off = torch.zeros((s,), dtype=torch.int64, device="cuda")
+    rows = torch.arange(s, device="cuda")[:, None]
+    for f in per_block:
+        j = torch.arange(f.words.shape[1], device="cuda")[None, :]
+        dst = off[:, None] + j
+        m = (j < f.count[:, None]) & (dst < slots)
+        r = rows.expand_as(dst)[m]
+        d = dst[m]
+        out.words[r, d] = f.words[m]
+        for name in ("length", "start", "end"):
+            getattr(out, name)[r, d] = getattr(f, name)[m]
+        off += f.count
+    return out._replace(
+        count=off.clamp(max=slots).to(torch.int32),
+        lost2=sum(f.lost2 for f in per_block),
+        dropped=(sum(f.dropped for f in per_block)
+                 + (off - slots).clamp(min=0).to(torch.int32)),
+        crcfail=sum(f.crcfail for f in per_block))
+
+
+def phase_flagship():
+    """(d) The bench's bit-exact flagship configuration at full width:
+    FLAGSHIP_COPIES copies of a fleet block of FLAGSHIP_PAYLOADS payloads
+    per stream, tiled time-major by tile_superblock into one [12 T, S]
+    int16 input, decoded by one decode_block(pretiled_streams=S,
+    fused_pipeline, kernel_compact, assume_full, with_peak=False) call:
+    kernel B1 over 589,824 samples per stream.  Its frames equal the
+    row-major path's (12 blocks through decode_block with kernel_compact,
+    chained), and every payload equals the encoded one, 12 times.
+    Returns B1's launches in the pretiled call and its time."""
+    import torch
+    from gnuais_tpu_torch.ops import fused
+    from gnuais_tpu_torch.runtime.pipeline import (decode_block,
+                                                   extract_frames, init_carry)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 1)
+    x, want = fleet_block(FLEET_BLOCKS, FLAGSHIP_PAYLOADS, g)
+    total = FLAGSHIP_COPIES * FLEET_BLOCK
+    torch.cuda.reset_peak_memory_stats()
+    tiled = fused.tile_superblock(x.repeat(1, FLAGSHIP_COPIES), 1)[0]
+    check(tuple(tiled.shape) == (total, FLEET_STREAMS), f"tiled {tiled.shape}")
+    flags = dict(frame_slots=FLAGSHIP_SLOTS, fused_pipeline=True,
+                 kernel_compact=True, assume_full=True, with_peak=False)
+    carry0 = init_carry(FLEET_STREAMS, "cuda")
+    fused.pipeline_fused_compact.launches = 0
+    wall, (carry, frames, _) = host_ms(lambda: decode_block(
+        tiled, total, carry0, pretiled_streams=FLEET_STREAMS, **flags))
+    launches = fused.pipeline_fused_compact.launches
+    check(launches == 1, f"pretiled decode launched B1 {launches} times")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del tiled
+    # the row-major path: the same block 12 times, chained
+    c, per_block = carry0, []
+    for k in range(FLAGSHIP_COPIES):
+        c, f, _ = decode_block(x, FLEET_BLOCK, c, block_base=k * FLEET_BLOCK,
+                               **flags)
+        per_block.append(f)
+    compare(tuple(frames), tuple(concat_frames(per_block, FLAGSHIP_SLOTS)),
+            "pretiled frames vs the row-major blocks'")
+    compare(tuple(carry), tuple(c), "pretiled carry vs the row-major blocks'")
+    n = FLAGSHIP_COPIES * FLAGSHIP_PAYLOADS
+    check(bool((frames.count == n).all()), "pretiled frame counts")
+    per_stream = extract_frames(frames)
+    check(all(f.crc_ok for lst in per_stream for f in lst), "CRC rejects")
+    n_frames = check_payloads(per_stream, [w * FLAGSHIP_COPIES for w in want],
+                              "flagship")
+    print(f"[7 flagship] decode_block(pretiled_streams={FLEET_STREAMS}, "
+          f"kernel_compact, assume_full, frame_slots={FLAGSHIP_SLOTS}) on one "
+          f"[{total}, {FLEET_STREAMS}] int16 input: 1 launch of B1, "
+          f"{wall:.1f} ms (host clock, synchronised), peak device memory "
+          f"{peak_gb:.1f} GB; frames and carry == the row-major path's 12 "
+          f"chained blocks, bitwise; all {n_frames} payloads equal the "
+          f"encoded ones ({n} per stream)", flush=True)
+    return launches, wall
+
+
+def phase_lobe_paths(blocks, expected):
+    """The lobe FIR on the fleet: BatchPipeline(fused_pipeline,
+    device_crc, lobe_fir) over the three fleet blocks, once with kernel
+    B2 and once with kernel_compact (B1); every payload equal to the
+    encoded ones (the lobe mode is held to packet parity) and the
+    counters clean.  Returns each kernel's launches on its path."""
+    from gnuais_tpu_torch.ops import fused
+    from gnuais_tpu_torch.runtime.pipeline import BatchPipeline
+    launches = {}
+    for name, wrapper, compact in (("B2", fused.pipeline_fused, False),
+                                   ("B1", fused.pipeline_fused_compact, True)):
+        wrapper.launches = 0
+        pipe = BatchPipeline(FLEET_STREAMS, block_len=FLEET_BLOCK,
+                             frame_slots=FLEET_SLOTS, fused_pipeline=True,
+                             device_crc=True, lobe_fir=True,
+                             kernel_compact=compact, device="cuda")
+        t0 = time.perf_counter()
+        n = sum(check_payloads(pipe.process(x), want, f"{name} lobe block {b}")
+                for b, (x, want) in enumerate(zip(blocks, expected)))
+        wall = time.perf_counter() - t0
+        launches[name] = wrapper.launches
+        check(launches[name] == len(blocks),
+              f"{name} lobe launched {launches[name]} times")
+        for i, c in enumerate(pipe.counters):
+            check((c.lostframes, c.lostframes2) == (0, 0),
+                  f"{name} lobe stream {i} counters {c}")
+        print(f"[8 lobe paths] BatchPipeline(fused_pipeline, device_crc, "
+              f"lobe_fir, kernel_compact={compact}): {len(blocks)} blocks, "
+              f"{n} frames, all payloads equal the encoded ones, counters "
+              f"clean; kernel {name} lobe launches {launches[name]}; "
+              f"{wall:.1f} s", flush=True)
+    return launches
 
 
 def timed(label: str, fn, *args):
@@ -630,74 +887,79 @@ def main() -> int:
 
     name, card = timed("1 device", phase_device)
     timed("2 build", phase_build)
-    err = timed("3 parity", phase_parity)
+    err2, err1 = timed("3 parity", phase_parity)
+    err2l, err1l = timed("3 parity lobe", phase_parity_lobe)
     err3, err4 = timed("3 parity B3/B4", phase_parity_front)
-    err1f, err3f, err4f = timed("3 parity fixture", phase_parity_fixture)
+    err2f, err1f, err3f, err4f = timed("3 parity fixture",
+                                       phase_parity_fixture)
 
-    fused.pipeline_fused_compact.launches = 0
+    # the main path: BatchPipeline and the command line, kernel B2
+    fused.pipeline_fused.launches = 0
     blocks, expected, carry0, carry1, block_s, main_result = timed(
         "4 main path", phase_main_path)
     timed("5 end to end", phase_end_to_end, "fused", "5 end to end")
-    launches = fused.pipeline_fused_compact.launches
-    check(launches >= FLEET_BLOCKS, f"kernel launched {launches} times")
-    print(f"[5 end to end] kernel B1 launches on the main path: {launches}; "
+    launches2 = fused.pipeline_fused.launches
+    check(launches2 >= FLEET_BLOCKS, f"kernel B2 launched {launches2} times")
+    print(f"[5 end to end] kernel B2 launches on the main path: {launches2}; "
           f"median full-size block process() {block_s * 1e3:.1f} ms on "
           f"{card}", flush=True)
 
-    err2, ms, plain_ms = timed("6 full block", phase_full_block, blocks[0],
-                               carry0, carry1)
+    full = timed("6 full block", phase_full_block, blocks[0], carry0, carry1,
+                 "vpu")
+    full_lobe = timed("6 full block lobe", phase_full_block, blocks[0],
+                      carry0, None, "lobe")
+    launches1, _ = timed("7 flagship", phase_flagship)
+    lobe_launches = timed("8 lobe paths", phase_lobe_paths, blocks, expected)
 
     fused.frontend_fused.launches = 0
-    timed("7 path S", phase_path_s, blocks, expected)
+    timed("9 path S", phase_path_s, blocks, expected)
     launches3 = fused.frontend_fused.launches
     check(launches3 >= 2, f"kernel B3 launched {launches3} times on path S")
-    print(f"[7 path S] kernel B3 launches on path S: {launches3}", flush=True)
+    print(f"[9 path S] kernel B3 launches on path S: {launches3}", flush=True)
 
-    err3b, ms3, plain3, err4b, ms4, plain4 = timed(
-        "8 full block B3/B4", phase_front_full, blocks[0])
-    timed("9 superblock", phase_superblock, blocks, main_result, block_s)
+    front3, front4 = timed("10 full block B3/B4", phase_front_full, blocks[0])
+    timed("11 superblock", phase_superblock, blocks, main_result, block_s)
 
     fused.dpll_fused.launches = 0
-    timed("10 path F", phase_end_to_end, "fast", "10 path F")
+    timed("12 path F", phase_end_to_end, "fast", "12 path F")
     launches4 = fused.dpll_fused.launches
     check(launches4 > 0, f"kernel B4 launched {launches4} times on path F")
-    print(f"[10 path F] kernel B4 launches on path F: {launches4}",
+    print(f"[12 path F] kernel B4 launches on path F: {launches4}",
           flush=True)
 
-    jax_loaded = sorted(m for m in sys.modules
-                        if m == "jax" or m.startswith(("jax.", "jaxlib")))
-    check(not jax_loaded, f"JAX was imported: {jax_loaded[:5]}")
+    loaded = sorted(m for m in sys.modules
+                    if m in ("jax", "gnuais_tpu")
+                    or m.startswith(("jax.", "jaxlib", "gnuais_tpu.")))
+    check(not loaded, f"JAX or the JAX package was imported: {loaded[:5]}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     src = "gnuais_tpu_torch/csrc/"
-    print(json.dumps({"kernels": [{
-        "name": "pipeline_compact",
-        "route": "cuda",
-        "source": src + "pipeline_compact.cu",
-        "replaces": "gnuais_tpu/ops/fused.py:1261",
-        "launches": launches,
-        "max_abs_err": max(err, err1f, err2),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "frontend",
-        "route": "cuda",
-        "source": src + "frontend.cu",
-        "replaces": "gnuais_tpu/ops/fused.py:346",
-        "launches": launches3,
-        "max_abs_err": max(err3, err3f, err3b),
-        "ms": ms3,
-        "plain_ms": plain3,
-    }, {
-        "name": "dpll",
-        "route": "cuda",
-        "source": src + "dpll.cu",
-        "replaces": "gnuais_tpu/ops/fused.py:129",
-        "launches": launches4,
-        "max_abs_err": max(err4, err4f, err4b),
-        "ms": ms4,
-        "plain_ms": plain4,
-    }]}), flush=True)
+    rows = [
+        ("pipeline_fused", "pipeline_fused.cu", "gnuais_tpu/ops/fused.py:1031",
+         launches2, full["B2"], max(err2, err2f)),
+        ("pipeline_fused_lobe", "pipeline_fused.cu",
+         "gnuais_tpu/ops/fused.py:1031", lobe_launches["B2"],
+         full_lobe["B2"], err2l),
+        ("pipeline_compact", "pipeline_compact.cu",
+         "gnuais_tpu/ops/fused.py:1261", launches1, full["B1"],
+         max(err1, err1f)),
+        ("pipeline_compact_lobe", "pipeline_compact.cu",
+         "gnuais_tpu/ops/fused.py:1261", lobe_launches["B1"],
+         full_lobe["B1"], err1l),
+        ("frontend", "frontend.cu", "gnuais_tpu/ops/fused.py:346", launches3,
+         front3, max(err3, err3f)),
+        ("dpll", "dpll.cu", "gnuais_tpu/ops/fused.py:129", launches4, front4,
+         max(err4, err4f)),
+    ]
+    kernels = []
+    for kname, source, replaces, launches, m, err in rows:
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src + source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(err, m["max_abs_err"]), "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

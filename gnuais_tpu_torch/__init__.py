@@ -1,14 +1,15 @@
 """gnuais-tpu on PyTorch and CUDA.
 
 A port of the ``gnuais_tpu`` decode step to PyTorch, with the fused
-decode kernel written by hand in CUDA C++ for Hopper (``sm_90a``).  The
+decode kernels written by hand in CUDA C++ for Hopper (``sm_90a``).  The
 JAX package stays the reference: every op here is held bit for bit
 against its ``gnuais_tpu`` counterpart on the CPU.
 
-This package imports ``torch`` and never ``jax``.  It shares the host
-layers of ``gnuais_tpu`` that never import JAX (``constants``,
+This package imports ``torch`` and nothing of ``jax`` or ``gnuais_tpu``.
+It keeps its own copies of the host layers it needs (``constants``,
 ``config``, ``golden``, ``ais``, ``native``, ``io.audio``, ``io.sinks``,
-``runtime.session``, ``runtime.metrics``).
+``runtime.session``, ``runtime.metrics``), which differ from the JAX
+package's only in their import lines.
 
 Entry points: ``runtime.pipeline.BatchPipeline`` and ``TorchReceiver``
 (the decode step with a carried state), ``runtime.batch.BatchSession``

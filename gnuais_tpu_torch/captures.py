@@ -1,5 +1,5 @@
 """Synthetic int16 capture batches for parity checks, made with numpy
-from a seed through the shared encoder (``gnuais_tpu.golden.encoder``).
+from a seed through the encoder (``golden.encoder``).
 
 ``payload_capture`` gives one clean capture and the payloads it carries.
 Each other function returns an ``[S, T]`` int16 array whose rows are
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from gnuais_tpu.golden import encoder as E
+from .golden import encoder as E
 
 _PREAMBLE = [0, 1] * 12
 _FLAG = [0, 1, 1, 1, 1, 1, 1, 0]

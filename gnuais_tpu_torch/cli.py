@@ -12,9 +12,10 @@ backend comes from ``--backend`` or the config's ``backend`` directive:
 ``exact`` runs the plain PyTorch chain in reference-sized blocks;
 ``fast`` runs the exact FIR, the DPLL kernel and the plain deframer in
 1024-sample blocks with the CRC on the host; ``fused`` runs the fused
-kernel in 1024-sample blocks with the CRC filter on the device;
-``golden`` runs the shared golden model (``gnuais_tpu.golden``) on the
-host.  The device defaults to ``cuda``; ``cpu`` must be asked for.
+kernel B2 and the candidate compaction in 1024-sample blocks with the
+CRC filter on the device, as the JAX package's ``--backend fused`` does;
+``golden`` runs the golden model (``golden.model``) on the host.  The
+device defaults to ``cuda``; ``cpu`` must be asked for.
 """
 
 from __future__ import annotations
@@ -27,12 +28,12 @@ from typing import List, Optional
 
 import torch
 
-from gnuais_tpu import constants as C
-from gnuais_tpu.config import Config, read_config
-from gnuais_tpu.io import audio as audio_io
-from gnuais_tpu.io.sinks import StdoutSink
-from gnuais_tpu.runtime.metrics import LevelMonitor
-from gnuais_tpu.runtime.session import DecodeSession, SessionResult
+from . import constants as C
+from .config import Config, read_config
+from .io import audio as audio_io
+from .io.sinks import StdoutSink
+from .runtime.metrics import LevelMonitor
+from .runtime.session import DecodeSession, SessionResult
 
 log = logging.getLogger("gnuais")
 
@@ -49,7 +50,7 @@ def make_receiver_factory(cfg: Config, device: str):
         raise SystemExit(f"unknown backend: {cfg.backend} "
                          f"(this port has {', '.join(BACKENDS)})")
     if cfg.backend == "golden":
-        from gnuais_tpu.golden.model import GoldenReceiver
+        from .golden.model import GoldenReceiver
         return lambda name: GoldenReceiver(name)
     from .runtime.pipeline import TorchReceiver
     fast = cfg.backend == "fast"

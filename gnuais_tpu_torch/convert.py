@@ -52,6 +52,13 @@ def carry_to_numpy(carry: PipelineCarry) -> List[np.ndarray]:
     return out
 
 
+def candidates_to_numpy(out: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """The candidate outputs of ``ops.fused.pipeline_fused`` (its first
+    seven: cand_valid, cw, cl, cs, ce, lost2, over) as numpy, cw as
+    uint32 (the layout of the JAX function's)."""
+    return [_to_numpy(x, as_uint32=(i == 1)) for i, x in enumerate(out[:7])]
+
+
 def frames_to_numpy(frames: FrameBatch) -> FrameBatch:
     """A FrameBatch of numpy arrays, words as uint32 (the layout of the
     JAX FrameBatch)."""

@@ -1,7 +1,7 @@
 // One stream's decode step: exact FIR, DPLL slicer with NRZI, and the
 // HDLC deframer with its 15x32-bit register.
 //
-// Shared between the CUDA kernels (pipeline_compact.cu, frontend.cu,
+// Shared between the CUDA kernels (pipeline_kernel.cuh, frontend.cu,
 // dpll.cu) and a later CPU build, so every function is __host__
 // __device__ and the state lives in plain structs.  Bit-exact with the
 // exact chain of gnuais_tpu (ops/fir.fir_exact, ops/demod.dpll_scan /
@@ -75,6 +75,24 @@ GNUAIS_HD float fir_exact(const float (&win)[kFirLen]) {
   float f = fmul_rn(win[0], taps[0]);
 #pragma unroll
   for (int i = 1; i < kFirLen; ++i) f = fadd_rn(f, fmul_rn(win[i], taps[i]));
+  return f;
+}
+
+// Main-lobe FIR (gnuais_tpu/ops/fused.py fir_mode="lobe"): only taps
+// LOBE_LO..LOBE_HI = 10..25, the mirrored samples of each symmetric tap
+// pair added first, the eight pair terms accumulated from tap 10 up.
+// Not the exact chain's rounding (a packet-parity mode in the JAX
+// package); the plain version ops/fir.fir_lobe repeats this order.
+constexpr int kLobeLo = 10;
+constexpr int kLobeHi = 25;
+
+GNUAIS_HD float fir_lobe(const float (&win)[kFirLen]) {
+  constexpr float taps[kFirLen] = {GNUAIS_FIR_TAPS};
+  float f = fmul_rn(fadd_rn(win[kLobeLo], win[kFirLen - 1 - kLobeLo]),
+                    taps[kLobeLo]);
+#pragma unroll
+  for (int i = kLobeLo + 1; i < (kLobeLo + kLobeHi + 1) / 2; ++i)
+    f = fadd_rn(f, fmul_rn(fadd_rn(win[i], win[kFirLen - 1 - i]), taps[i]));
   return f;
 }
 

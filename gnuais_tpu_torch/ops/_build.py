@@ -30,7 +30,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes of every C entry point in the library
 _ENTRIES = {
-    "gnuais_pipeline_compact": [_P] * 13 + [_I] * 7 + [_P],
+    "gnuais_pipeline_compact": [_P] * 13 + [_I] * 8 + [_P],
+    "gnuais_pipeline_fused": [_P] * 13 + [_I] * 8 + [_P],
     "gnuais_frontend": [_P] * 5 + [_I] * 3 + [_P],
     "gnuais_dpll": [_P] * 4 + [_I] * 3 + [_P],
 }

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gnuais_tpu import constants as C
+from .. import constants as C
 
 from .demod import REG_BITS
 

@@ -19,7 +19,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from gnuais_tpu import constants as C
+from .. import constants as C
 
 # Shift register geometry: 15 x 32 = 480 bits >= 449-bit buffer cap.
 REG_WORDS = 15

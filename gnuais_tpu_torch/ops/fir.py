@@ -1,13 +1,19 @@
-"""Batched FIR band filter, exact order (counterpart of
-``gnuais_tpu/ops/fir.py``).
+"""Batched FIR band filter (counterpart of ``gnuais_tpu/ops/fir.py``).
 
-36 explicit float32 multiplies and adds in the reference's
-accumulation order: each product and each partial sum is rounded to
-float32 once, with no fused multiply-add.  Subnormal products are kept,
-as in the reference C code (the JAX package on CPU and TPU flushes
-them; see ``ROADMAP.md`` section 3).
+Three forms, all with the one-sample delay (out[n] covers
+x[n-36 .. n-1]) and a carried [S, 36] history:
 
-Note the one-sample delay: out[n] covers x[n-36 .. n-1].
+- ``fir_exact``: 36 explicit float32 multiplies and adds in the
+  reference's accumulation order: each product and each partial sum is
+  rounded to float32 once, with no fused multiply-add.  Subnormal
+  products are kept, as in the reference C code (the JAX package on CPU
+  and TPU flushes them; see ``ROADMAP.md`` section 3).
+- ``fir_lobe``: the main-lobe FIR of the fused kernels' ``lobe`` mode,
+  taps ``LOBE_LO..LOBE_HI`` only, each symmetric pair of samples added
+  before its one multiply; a packet-parity mode, not the exact rounding.
+- ``fir_conv``: a convolution (``conv1d``), the JAX package's
+  ``exact_fir=False`` throughput form; its summation order is the
+  library's, so it is not bit-exact either.
 """
 
 from __future__ import annotations
@@ -16,12 +22,26 @@ from typing import Optional, Tuple
 
 import torch
 
-from gnuais_tpu.constants import FIR_LEN, FIR_TAPS
+from ..constants import FIR_LEN, FIR_TAPS
+
+# The main lobe of the Gaussian taps (gnuais_tpu/ops/fused.py LOBE_LO,
+# LOBE_HI): outside it every tap is below 1.3e-13.
+LOBE_LO, LOBE_HI = 10, 25
 
 
 def init_history(n_streams: int, device: torch.device | str) -> torch.Tensor:
     return torch.zeros((n_streams, FIR_LEN), dtype=torch.float32,
                        device=device)
+
+
+def _window(samples: torch.Tensor, history: torch.Tensor,
+            n_valid: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[history | samples] as float32 [S, 36 + T], and the new history:
+    the 36 inputs before sample ``n_valid`` (T when None), so a padded
+    final block's carry advances only over its real samples."""
+    x = torch.cat([history, samples.to(torch.float32)], dim=1)
+    end = samples.shape[1] if n_valid is None else int(n_valid)
+    return x, x[:, end:end + FIR_LEN].clone()
 
 
 def fir_exact(samples: torch.Tensor, history: torch.Tensor,
@@ -32,15 +52,58 @@ def fir_exact(samples: torch.Tensor, history: torch.Tensor,
     padded final block are real (the carried history advances only over
     those).  Returns (filtered [S, T] float32, new_history [S, 36])."""
     taps = torch.as_tensor(FIR_TAPS, device=samples.device)
-    x = torch.cat([history, samples.to(torch.float32)], dim=1)
+    x, new_history = _window(samples, history, n_valid)
     t = samples.shape[1]
     # out[:, n] = sum_i taps[i] * x[:, n + i], one rounding per product
     # and per partial sum (a separate multiply and add, never addcmul)
     out = x[:, 0:t] * taps[0]
     for i in range(1, FIR_LEN):
         out = out + x[:, i:i + t] * taps[i]
-    end = t if n_valid is None else int(n_valid)
-    return out, x[:, end:end + FIR_LEN].clone()
+    return out, new_history
+
+
+def fir_lobe(samples: torch.Tensor, history: torch.Tensor,
+             n_valid: Optional[int] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the kernels' ``lobe`` FIR: for i = 10..17,
+    (x[n+i] + x[n+35-i]) * taps[i], summed from i = 10 up, each add and
+    multiply rounded to float32 (the pair sums of int16 values are
+    exact).  Same arguments and returns as ``fir_exact``."""
+    taps = torch.as_tensor(FIR_TAPS, device=samples.device)
+    x, new_history = _window(samples, history, n_valid)
+    t = samples.shape[1]
+    out = None
+    for i in range(LOBE_LO, (LOBE_LO + LOBE_HI + 1) // 2):
+        j = FIR_LEN - 1 - i
+        term = (x[:, i:i + t] + x[:, j:j + t]) * taps[i]
+        out = term if out is None else out + term
+    return out, new_history
+
+
+def fir_conv(samples: torch.Tensor, history: torch.Tensor,
+             n_valid: Optional[int] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Convolution-form FIR (``exact_fir=False``): the 36 taps as one
+    ``conv1d`` over [history | samples] in float32.  Not bit-exact
+    against the reference's accumulation order.  Same arguments and
+    returns as ``fir_exact``.
+
+    On the card a float32 convolution goes through cuDNN, which takes
+    TF32 (about three decimal digits) unless told otherwise; the JAX
+    package asks for ``Precision.HIGHEST``, so TF32 is off for this call
+    and the caller's setting is restored after it."""
+    x, new_history = _window(samples, history, n_valid)
+    t = samples.shape[1]
+    # conv1d correlates: out[n] = sum_i w[i] * x[n + i] (the taps are
+    # palindromic, so the flip JAX writes out changes nothing)
+    w = torch.as_tensor(FIR_TAPS, device=samples.device).view(1, 1, FIR_LEN)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = torch.nn.functional.conv1d(x[:, None, :], w)[:, 0, :t]
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return out.contiguous(), new_history
 
 
 def block_peak(samples: torch.Tensor) -> torch.Tensor:

@@ -2,12 +2,21 @@
 ``gnuais_tpu/ops/fused.py``; kernel numbers as in ``ROADMAP.md``):
 
 - ``pipeline_fused_compact`` (B1, ``csrc/pipeline_compact.cu``): raw
-  samples to dense frame slots in one kernel.  Only the exact FIR
-  (``fir_mode="vpu"``) is ported.
+  samples to dense frame slots in one kernel.
+- ``pipeline_fused`` (B2, ``csrc/pipeline_fused.cu``): the same decode,
+  the frames landing in per-chunk candidate slots for
+  ``demod.compact_candidates``.
 - ``frontend_fused`` (B3, ``csrc/frontend.cu``): raw samples to 4-sample
   bit slots (FIR, DPLL, group reduce); the deframer runs after it.
 - ``dpll_fused`` (B4, ``csrc/dpll.cu``): the DPLL alone over filtered
   samples.
+
+B1 and B2 are one kernel body (``csrc/pipeline_kernel.cuh``) with two
+FIR modes: ``vpu`` (the exact FIR) and ``lobe`` (the main-lobe FIR,
+``fir.fir_lobe``); the JAX package's ``mxu`` mode is not ported.  Both
+take a time-major ``[T, S]`` input as it comes (``pretiled_streams``),
+the layout ``tile_superblock`` makes, or an ``[S, T]`` block that they
+transpose first.
 
 Each wrapper launches its kernel for a CUDA tensor, adding one to its
 ``launches`` counter, and runs its plain PyTorch version (``*_reference``,
@@ -19,14 +28,56 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-from gnuais_tpu import constants as C
-
+from .. import constants as C
 from . import demod, fir
-from .demod import REG_WORDS, DpllState, HdlcState
+from .demod import HDLC_CHUNK, MINI_SLOTS, REG_WORDS, DpllState, HdlcState
+from .fir import LOBE_HI, LOBE_LO
 
 _I32 = torch.int32
+
+# the kernels' fir_mode argument
+FIR_MODES = {"vpu": 0, "lobe": 1}
+
+_TAPS_F32 = np.asarray(C.FIR_TAPS, dtype=np.float32)
+# outside the main lobe the taps are below 1.3e-13: with int16 inputs
+# their whole contribution (< 1e-8) cannot move the slicer's sign for
+# any input that excites a main-lobe tap (gnuais_tpu/ops/fused.py:40-52)
+assert all(abs(t) < 1.3e-13 for i, t in enumerate(_TAPS_F32)
+           if not (LOBE_LO <= i <= LOBE_HI))
+# the taps are symmetric, so the lobe FIR pairs the mirrored samples
+assert all(_TAPS_F32[i] == _TAPS_F32[C.FIR_LEN - 1 - i]
+           for i in range(C.FIR_LEN))
+
+
+def _fir_fn(fir_mode: str):
+    """The plain FIR of a kernel FIR mode; raises for the modes that
+    are not ported."""
+    if fir_mode == "mxu":
+        raise NotImplementedError("fir_mode='mxu' is not ported")
+    if fir_mode not in FIR_MODES:
+        raise ValueError(f"unknown fir_mode {fir_mode!r}")
+    return fir.fir_lobe if fir_mode == "lobe" else fir.fir_exact
+
+
+def n_candidates(t: int) -> int:
+    """K, the candidate slots per stream of a T-sample block: MINI_SLOTS
+    per 64-slot HDLC chunk of the T/4 bit slots, the last chunk padded."""
+    return MINI_SLOTS * -(-(t // 4) // HDLC_CHUNK)
+
+
+def tile_superblock(samples: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """[S, K*T] -> [K, T, S]: each block time-major in one copy, the
+    native input layout of the port's fused kernels
+    (``pretiled_streams=S``).  The JAX function makes the TPU kernel's
+    [K, nt*T, sublanes, 128] stream tiles instead."""
+    s, total = samples.shape
+    if n_blocks < 1 or total % n_blocks:
+        raise ValueError(f"{total} samples do not split into {n_blocks} blocks")
+    return samples.reshape(s, n_blocks, total // n_blocks) \
+        .permute(1, 2, 0).contiguous()
 
 
 def _carry_history(samples: torch.Tensor, history: torch.Tensor,
@@ -35,7 +86,9 @@ def _carry_history(samples: torch.Tensor, history: torch.Tensor,
     building concat(history, samples): the window full[nv : nv+36] of
     full = [history | samples] lies inside samples when nv >= 36 and
     inside the first 72 columns otherwise.  The tail start is clamped
-    for short final blocks (n_valid < 36)."""
+    for short final blocks (n_valid < 36).  For a time-major input
+    (``samples`` the [S, T] view of a [T, S] tensor) the same strided
+    read gives the 36 rows before row n_valid, for any n_valid."""
     nv = int(n_valid)
     lo = max(nv - C.FIR_LEN, 0)
     tail = samples[:, lo:lo + C.FIR_LEN].to(torch.float32)
@@ -44,27 +97,70 @@ def _carry_history(samples: torch.Tensor, history: torch.Tensor,
     return small[:, k:k + C.FIR_LEN].contiguous()
 
 
+def _rows(samples: torch.Tensor, n_valid: int, fir_mode: str,
+          assume_full: bool, pretiled_streams: Optional[int]) -> torch.Tensor:
+    """Check a fused kernel's input and return its [S, T] view: the
+    input itself, or the transpose of a time-major [T, S] one."""
+    _fir_fn(fir_mode)
+    if pretiled_streams is None:
+        rows = samples
+    else:
+        if samples.dim() != 2 or samples.shape[1] != pretiled_streams:
+            raise ValueError(f"pretiled input {tuple(samples.shape)} is not "
+                             f"[T, {pretiled_streams}]")
+        rows = samples.t()
+    t = rows.shape[1]
+    if t % 4:
+        raise ValueError(f"T must be a multiple of 4, got {t}")
+    if assume_full and int(n_valid) != t:
+        raise ValueError(f"assume_full with n_valid {n_valid} != T {t}")
+    return rows
+
+
+def pipeline_fused_reference(
+        samples: torch.Tensor, n_valid: int, history: torch.Tensor,
+        dpll: DpllState, hdlc: HdlcState, block_base: int = 0,
+        fir_mode: str = "vpu", lost2_lo: Optional[int] = None,
+        lost2_hi: Optional[int] = None, assume_full: bool = False,
+        pretiled_streams: Optional[int] = None):
+    """The plain PyTorch version of ``pipeline_fused``: the chain of
+    ``fir_mode`` (``fir_exact`` or ``fir_lobe``, ``dpll_scan``,
+    ``group_reduce_bits``) and ``demod.hdlc_scan_candidates``.  Same
+    arguments and returns as ``pipeline_fused``."""
+    rows = _rows(samples, n_valid, fir_mode, assume_full, pretiled_streams)
+    gbits, gvalid, gpos, new_history, new_dpll = bit_slots(
+        rows, n_valid, history, dpll, block_base, fir_mode=fir_mode)
+    new_hdlc, cand = demod.hdlc_scan_candidates(
+        gbits, gvalid, hdlc, gpos, lost2_lo=lost2_lo, lost2_hi=lost2_hi)
+    return (*cand, new_history, new_dpll, new_hdlc)
+
+
+def compact_slots(candidates, frame_slots: int):
+    """``pipeline_fused``'s returns turned into ``pipeline_fused_compact``'s:
+    the candidates compacted into ``frame_slots`` dense slots by
+    ``demod.compact_candidates``, count_raw their number per stream, the
+    counters and carry as they are."""
+    valid, cw, cl, cs, ce, lost2, over, *carry = candidates
+    dense = demod.compact_candidates(
+        demod.init_frames(valid.shape[0], frame_slots, valid.device),
+        valid, cw, cl, cs, ce, lost2=lost2, over=over)
+    count_raw = valid.sum(dim=1).to(_I32)
+    return (count_raw, dense.words, dense.length, dense.start, dense.end,
+            lost2, over, *carry)
+
+
 def pipeline_fused_compact_reference(
         samples: torch.Tensor, n_valid: int, history: torch.Tensor,
         dpll: DpllState, hdlc: HdlcState, frame_slots: int = 32,
-        block_base: int = 0, lost2_lo: Optional[int] = None,
-        lost2_hi: Optional[int] = None):
-    """The plain PyTorch version of the fused step: the exact chain
-    (fir_exact, dpll_scan, group_reduce_bits, hdlc_scan) with its
-    candidates compacted into dense slots.  Same arguments and returns
-    as ``pipeline_fused_compact``."""
-    s = samples.shape[0]
-    gbits, gvalid, gpos, new_history, new_dpll = frontend_fused_reference(
-        samples, n_valid, history, dpll, block_base)
-    new_hdlc, cand = demod.hdlc_scan_candidates(
-        gbits, gvalid, hdlc, gpos, lost2_lo=lost2_lo, lost2_hi=lost2_hi)
-    dense = demod.compact_candidates(
-        demod.init_frames(s, frame_slots, samples.device), cand.valid,
-        cand.words, cand.length, cand.start, cand.end,
-        lost2=cand.lost2, over=cand.over)
-    count_raw = cand.valid.sum(dim=1).to(_I32)
-    return (count_raw, dense.words, dense.length, dense.start, dense.end,
-            cand.lost2, cand.over, new_history, new_dpll, new_hdlc)
+        block_base: int = 0, fir_mode: str = "vpu",
+        lost2_lo: Optional[int] = None, lost2_hi: Optional[int] = None,
+        assume_full: bool = False, pretiled_streams: Optional[int] = None):
+    """The plain PyTorch version of ``pipeline_fused_compact``:
+    ``pipeline_fused_reference``, then ``compact_slots``.  Same arguments
+    and returns as ``pipeline_fused_compact``."""
+    return compact_slots(pipeline_fused_reference(
+        samples, n_valid, history, dpll, hdlc, block_base, fir_mode,
+        lost2_lo, lost2_hi, assume_full, pretiled_streams), frame_slots)
 
 
 def _check_state(x: torch.Tensor, dtype: torch.dtype, **leaves) -> None:
@@ -107,21 +203,32 @@ def _launch(entry: str, *args) -> None:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
 
 
-def _launch_kernel(samples, n_valid, history, dpll, hdlc, frame_slots,
-                   block_base, lost2_lo, lost2_hi):
-    s, t = samples.shape
-    dev = samples.device
-    f = int(frame_slots)
-    _check_state(samples, torch.int16, history=history,
+def _launch_pipeline(wrapper, rows, pretiled, n_valid, history, dpll, hdlc,
+                     slots, block_base, fir_mode, lost2_lo, lost2_hi):
+    """Launch B1 (``wrapper`` is ``pipeline_fused_compact``: dense slots)
+    or B2 (``pipeline_fused``: candidate slots) on ``rows`` ([S, T];
+    already time-major in memory when ``pretiled``), with ``slots`` frame
+    slots per stream, and add one to ``wrapper.launches``.  Returns
+    (count_raw [S] or cand_valid [S, slots], words, length, start, end,
+    lost2, over, new_history, new_dpll, new_hdlc)."""
+    candidates = wrapper is pipeline_fused
+    s, t = rows.shape
+    dev = rows.device
+    _check_state(rows, torch.int16, history=history,
                  **dict(zip(dpll._fields, dpll)), **hdlc._asdict())
-    x = _time_major(samples)
+    x = rows.t() if pretiled else _time_major(rows)
+    if not x.is_contiguous():
+        raise ValueError("pretiled input must be a contiguous [T, S] tensor")
     hist = history.to(torch.float32).contiguous()
     dpll_in = torch.stack(list(dpll)).to(_I32).contiguous()           # [3, S]
     hdlc_in = torch.stack(list(hdlc[:8])).to(_I32).contiguous()       # [8, S]
     reg_in = hdlc.shiftreg.to(_I32).contiguous()                      # [S, 15]
-    count_raw = torch.empty((s,), dtype=_I32, device=dev)
-    words = torch.zeros((s, f, REG_WORDS), dtype=_I32, device=dev)
-    fields = torch.zeros((3, s, f), dtype=_I32, device=dev)
+    if candidates:
+        first = torch.zeros((s, slots), dtype=torch.bool, device=dev)
+    else:
+        first = torch.empty((s,), dtype=_I32, device=dev)
+    words = torch.zeros((s, slots, REG_WORDS), dtype=_I32, device=dev)
+    fields = torch.zeros((3, s, slots), dtype=_I32, device=dev)
     lost2 = torch.empty((s,), dtype=_I32, device=dev)
     over = torch.empty((s,), dtype=_I32, device=dev)
     dpll_out = torch.empty((3, s), dtype=_I32, device=dev)
@@ -130,15 +237,18 @@ def _launch_kernel(samples, n_valid, history, dpll, hdlc, frame_slots,
     lo = -2**31 if lost2_lo is None else int(lost2_lo)
     hi = 2**31 - 1 if lost2_hi is None else int(lost2_hi)
     base = (int(block_base) + 2**31) % 2**32 - 2**31     # int32 wrap
+    nv = max(0, min(int(n_valid), t))
     if s:
-        _launch("gnuais_pipeline_compact", x, hist, dpll_in, hdlc_in, reg_in,
-                count_raw, words, fields, lost2, over, dpll_out, hdlc_out,
-                reg_out, s, t, max(0, min(int(n_valid), t)), base, lo, hi, f)
-        pipeline_fused_compact.launches += 1
+        entry = "gnuais_pipeline_fused" if candidates \
+            else "gnuais_pipeline_compact"
+        _launch(entry, x, hist, dpll_in, hdlc_in, reg_in, first, words,
+                fields, lost2, over, dpll_out, hdlc_out, reg_out, s, t, nv,
+                base, lo, hi, slots, FIR_MODES[fir_mode])
+        wrapper.launches += 1
     new_dpll = DpllState(*dpll_out.unbind(0))
     new_hdlc = HdlcState(*hdlc_out.unbind(0), shiftreg=reg_out)
-    new_history = _carry_history(samples, hist, n_valid)
-    return (count_raw, words, fields[0], fields[1], fields[2], lost2, over,
+    new_history = _carry_history(rows, hist, nv)
+    return (first, words, fields[0], fields[1], fields[2], lost2, over,
             new_history, new_dpll, new_hdlc)
 
 
@@ -147,36 +257,77 @@ def pipeline_fused_compact(samples: torch.Tensor, n_valid: int,
                            hdlc: HdlcState, frame_slots: int = 32,
                            block_base: int = 0, fir_mode: str = "vpu",
                            lost2_lo: Optional[int] = None,
-                           lost2_hi: Optional[int] = None):
-    """Fused decode of one block with dense frame slots.
+                           lost2_hi: Optional[int] = None,
+                           assume_full: bool = False,
+                           pretiled_streams: Optional[int] = None):
+    """Fused decode of one block with dense frame slots (kernel B1).
 
-    samples: int16 [S, T] (T % 4 == 0); n_valid: real samples (the rest
-    is padding and freezes the state); history: float32 [S, 36];
-    block_base: absolute index of sample 0; lost2 counts wrong-size stops
-    in [lost2_lo, lost2_hi).  Returns (count_raw [S], words [S, F, 15]
-    int32 bit patterns, length/start/end [S, F], lost2 [S], over [S],
-    new_history, new_dpll, new_hdlc): frames in arrival order with zeroed
-    empty slots, count_raw not clipped to F = frame_slots.
+    samples: int16 [S, T] (T % 4 == 0), or with ``pretiled_streams=S``
+    the same block time-major, [T, S] (``tile_superblock``); n_valid:
+    real samples (the rest is padding and freezes the state); history:
+    float32 [S, 36]; block_base: absolute index of sample 0; lost2 counts
+    wrong-size stops in [lost2_lo, lost2_hi); fir_mode: "vpu" (exact) or
+    "lobe"; assume_full: the caller promises n_valid == T (checked, and
+    nothing else: unlike the TPU kernel's, these have no variant with
+    the per-sample gates compiled out).
+    Returns (count_raw [S], words [S, F, 15] int32 bit patterns,
+    length/start/end [S, F], lost2 [S], over [S], new_history, new_dpll,
+    new_hdlc): frames in arrival order with zeroed empty slots, count_raw
+    not clipped to F = frame_slots.
 
     A CUDA tensor launches the hand-written kernel and adds one to
     ``pipeline_fused_compact.launches``; a CPU tensor runs the plain
     version.  The JAX function's TPU tiling knobs have no counterpart
-    here; the ``lobe`` and ``mxu`` FIR modes are not ported yet."""
-    if fir_mode != "vpu":
-        raise NotImplementedError(f"fir_mode={fir_mode!r}: only 'vpu' is ported")
-    if samples.shape[1] % 4:
-        raise ValueError(f"T must be a multiple of 4, got {samples.shape[1]}")
-    if samples.device.type == "cuda":
-        return _launch_kernel(samples, n_valid, history, dpll, hdlc,
-                              frame_slots, block_base, lost2_lo, lost2_hi)
-    if samples.device.type == "cpu":
+    here; the ``mxu`` FIR mode is not ported."""
+    rows = _rows(samples, n_valid, fir_mode, assume_full, pretiled_streams)
+    if rows.device.type == "cuda":
+        return _launch_pipeline(
+            pipeline_fused_compact, rows, pretiled_streams is not None,
+            n_valid, history, dpll, hdlc, int(frame_slots), block_base,
+            fir_mode, lost2_lo, lost2_hi)
+    if rows.device.type == "cpu":
         return pipeline_fused_compact_reference(
             samples, n_valid, history, dpll, hdlc, frame_slots, block_base,
-            lost2_lo, lost2_hi)
-    raise ValueError(f"unsupported device {samples.device}")
+            fir_mode, lost2_lo, lost2_hi, assume_full, pretiled_streams)
+    raise ValueError(f"unsupported device {rows.device}")
 
 
 pipeline_fused_compact.launches = 0
+
+
+def pipeline_fused(samples: torch.Tensor, n_valid: int,
+                   history: torch.Tensor, dpll: DpllState, hdlc: HdlcState,
+                   block_base: int = 0, fir_mode: str = "vpu",
+                   lost2_lo: Optional[int] = None,
+                   lost2_hi: Optional[int] = None, assume_full: bool = False,
+                   pretiled_streams: Optional[int] = None):
+    """Fused decode of one block into frame candidates (kernel B2).
+
+    Arguments as ``pipeline_fused_compact`` less ``frame_slots``.
+    Returns (cand_valid bool [S, K], cw [S, K, 15] int32 bit patterns,
+    cl/cs/ce [S, K] (length, start, end), lost2 [S], over [S],
+    new_history, new_dpll, new_hdlc), K = ``n_candidates(T)``: frame
+    completion n (n < 2) of 64-slot chunk c lands in slot 2c + n, a later
+    one in the same chunk counts in ``over``; the empty slots are zero.
+    ``compact_slots`` turns the returns into those of
+    ``pipeline_fused_compact``.
+
+    A CUDA tensor launches the hand-written kernel and adds one to
+    ``pipeline_fused.launches``; a CPU tensor runs the plain version."""
+    rows = _rows(samples, n_valid, fir_mode, assume_full, pretiled_streams)
+    if rows.device.type == "cuda":
+        return _launch_pipeline(
+            pipeline_fused, rows, pretiled_streams is not None, n_valid,
+            history, dpll, hdlc, n_candidates(rows.shape[1]), block_base,
+            fir_mode, lost2_lo, lost2_hi)
+    if rows.device.type == "cpu":
+        return pipeline_fused_reference(
+            samples, n_valid, history, dpll, hdlc, block_base, fir_mode,
+            lost2_lo, lost2_hi, assume_full, pretiled_streams)
+    raise ValueError(f"unsupported device {rows.device}")
+
+
+pipeline_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -234,12 +385,15 @@ dpll_fused.launches = 0
 
 def bit_slots(samples: torch.Tensor, n_valid: int, history: torch.Tensor,
               state: DpllState, block_base: int = 0,
-              fast_dpll: bool = False):
-    """The unfused front end: ``fir.fir_exact``, then ``dpll_fused``
-    (``fast_dpll``) or ``demod.dpll_scan``, then
-    ``demod.group_reduce_bits`` (the bit axis padded to a multiple of 4).
-    Same returns as ``frontend_fused``."""
-    filtered, new_history = fir.fir_exact(samples, history, n_valid=n_valid)
+              fast_dpll: bool = False, fir_mode: str = "vpu",
+              exact_fir: bool = True):
+    """The unfused front end: the FIR (``fir.fir_exact``, ``fir.fir_lobe``
+    for ``fir_mode="lobe"``, ``fir.fir_conv`` when ``exact_fir`` is
+    False), then ``dpll_fused`` (``fast_dpll``) or ``demod.dpll_scan``,
+    then ``demod.group_reduce_bits`` (the bit axis padded to a multiple
+    of 4).  Same returns as ``frontend_fused``."""
+    fir_fn = _fir_fn(fir_mode) if exact_fir else fir.fir_conv
+    filtered, new_history = fir_fn(samples, history, n_valid=n_valid)
     dpll_fn = dpll_fused if fast_dpll else demod.dpll_scan
     bit_valid, bits, new_state = dpll_fn(filtered, n_valid, state)
     t = samples.shape[1]

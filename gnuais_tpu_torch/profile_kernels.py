@@ -1,18 +1,19 @@
-"""Device time of the three kernel wrappers, one block each, by
+"""Device time of the kernel wrappers, one block each, by
 ``torch.profiler``, on one NVIDIA GPU:
 
     python -m gnuais_tpu_torch.profile_kernels [--streams 4096] \\
         [--block 49152] [--rounds 3]
 
-The wrappers are B1 (``pipeline_fused_compact``, 32 frame slots), B3
+The wrappers are B1 (``pipeline_fused_compact``, 32 frame slots) and B2
+(``pipeline_fused``), each with the exact and the lobe FIR, B3
 (``frontend_fused``) and B4 (``dpll_fused``, on the exact FIR of the
 same block).  The block is ``captures.mixed`` of 32 rows, repeated over
 the streams.  Each wrapper runs once to warm up (and to build the
-kernels), then in the order B1 B3 B4 B4 B3 B1, ``rounds`` times, each
-call under a profiler of its own.  For each wrapper the script prints
-every device kernel of its calls (its hand-written kernel and the
-copies and decodes around it) with its mean device time per call, their
-sum, and the card's name and power limit.  Run it in a process of its
+kernels), then in the order listed and back again, ``rounds`` times,
+each call under a profiler of its own.  For each wrapper the script
+prints every device kernel of its calls (its hand-written kernel and the
+copies and decodes around it) with its mean device time over the calls
+whose trace holds it, their sum, and the card's name and power limit.  Run it in a process of its
 own: nothing else may use the card meanwhile.
 """
 
@@ -41,6 +42,13 @@ def wrappers(n_streams: int, block: int):
     return {
         "B1 pipeline_fused_compact": lambda: fused.pipeline_fused_compact(
             x, block, c.history, c.dpll, c.hdlc, frame_slots=32),
+        "B1 pipeline_fused_compact lobe": lambda: fused.pipeline_fused_compact(
+            x, block, c.history, c.dpll, c.hdlc, frame_slots=32,
+            fir_mode="lobe"),
+        "B2 pipeline_fused": lambda: fused.pipeline_fused(
+            x, block, c.history, c.dpll, c.hdlc),
+        "B2 pipeline_fused lobe": lambda: fused.pipeline_fused(
+            x, block, c.history, c.dpll, c.hdlc, fir_mode="lobe"),
         "B3 frontend_fused": lambda: fused.frontend_fused(
             x, block, c.history, c.dpll),
         "B4 dpll_fused": lambda: fused.dpll_fused(filtered, block, c.dpll),
@@ -85,12 +93,15 @@ def main(argv=None) -> int:
     per_call = profile(wrappers(args.streams, args.block), args.rounds)
     print(f"S={args.streams} T={args.block}, {2 * args.rounds} calls per "
           f"wrapper; mean device ms per call (torch.profiler); {card}")
+    calls = 2 * args.rounds
     for name, kernels in per_call.items():
-        calls = 2 * args.rounds
-        total = sum(sum(v) for v in kernels.values()) / calls
-        print(f"{name}: {total:.3f} ms on the device")
-        for kernel, v in sorted(kernels.items(), key=lambda kv: -sum(kv[1])):
-            print(f"  {sum(v) / calls:9.3f} ms  {len(v)}/{calls} calls  "
+        # each kernel's mean over the calls whose trace holds it: the
+        # profiler may drop a call's events (it warns that it clears
+        # them at the end of each cycle)
+        mean = {k: sum(v) / len(v) for k, v in kernels.items()}
+        print(f"{name}: {sum(mean.values()):.3f} ms on the device")
+        for kernel, ms in sorted(mean.items(), key=lambda kv: -kv[1]):
+            print(f"  {ms:9.3f} ms  {len(kernels[kernel])}/{calls} calls  "
                   f"{kernel[:100]}")
     return 0
 

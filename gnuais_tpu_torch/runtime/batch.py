@@ -14,8 +14,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from gnuais_tpu.ais.dispatcher import ChannelDispatcher, DecodedMessage
-from gnuais_tpu.io.audio import load_capture
+from ..ais.dispatcher import ChannelDispatcher, DecodedMessage
+from ..io.audio import load_capture
 
 from .pipeline import BatchPipeline
 

@@ -6,18 +6,22 @@ history, DPLL state, HDLC state) and returns the new carry, the block's
 frame snapshots and the per-stream peak.  Its branches, in JAX's order
 of precedence:
 
-- ``fused_pipeline``: kernel B1 with dense slots (the JAX package's
-  ``fused_pipeline=True, kernel_compact=True``), optionally followed by
-  the on-device CRC filter;
+- ``kernel_compact`` (with ``fused_pipeline``): kernel B1, frames in
+  dense slots;
+- ``pretiled_streams`` (a time-major ``[T, S]`` input, with
+  ``fused_pipeline``) and ``fused_pipeline``: kernel B2, its frame
+  candidates compacted by ``demod.compact_candidates``;
+  each fused branch optionally followed by the on-device CRC filter;
 - ``fused_frontend``: kernel B3 (FIR, DPLL, bit slots), then the
   deframer ``demod.hdlc_scan``;
-- ``fast_dpll``: the exact FIR, kernel B4, the group reduce and
+- ``fast_dpll``: the FIR, kernel B4, the group reduce and
   ``hdlc_scan``;
-- otherwise the exact chain in plain PyTorch.
+- otherwise the exact chain in plain PyTorch (``exact_fir=False`` takes
+  the convolution FIR ``fir.fir_conv`` in both of these).
 
 ``decode_superblock`` chains K blocks through ``decode_block``.  The
 host unpacks the frame snapshots, checks CRC-16 and hands the payloads
-to the shared AIS layer.
+to the AIS layer.
 """
 
 from __future__ import annotations
@@ -28,13 +32,13 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from gnuais_tpu import constants as C
-from gnuais_tpu.golden.model import Frame, crc_check_and_extract
-
+from .. import constants as C
+from ..golden.model import Frame, crc_check_and_extract
 from ..device import resolve_device
 from ..ops import crc as crc_ops
 from ..ops import demod, fir
-from ..ops.fused import bit_slots, frontend_fused, pipeline_fused_compact
+from ..ops.fused import (bit_slots, frontend_fused, pipeline_fused,
+                         pipeline_fused_compact)
 
 
 class PipelineCarry(NamedTuple):
@@ -69,60 +73,115 @@ def _device_crc_filter(frames: demod.FrameBatch, s: int,
     return kept._replace(crcfail=crcfail)
 
 
-def decode_block(samples: torch.Tensor, n_valid: int, carry: PipelineCarry,
-                 frame_slots: int = 32, block_base: int = 0,
-                 fast_dpll: bool = False, fused_frontend: bool = False,
-                 fused_pipeline: bool = False, device_crc: bool = False,
-                 lost2_lo: Optional[int] = None,
-                 lost2_hi: Optional[int] = None
-                 ) -> Tuple[PipelineCarry, demod.FrameBatch, torch.Tensor]:
-    """samples: int16 [S, T]; n_valid: samples actually present (short
-    final blocks are padded to T); block_base: absolute index of sample
-    0.  Returns (carry', frames, peak [S]).
-
-    fused_pipeline runs the fused step with in-kernel compaction
-    (``ops.fused.pipeline_fused_compact``), which returns dense frame
-    slots; device_crc then CRC-checks them on the device and keeps only
-    passing frames (rejects counted in ``frames.crcfail``).  Otherwise
-    the block is cut into 4-sample bit slots by ``ops.fused.
-    frontend_fused`` (fused_frontend) or by the exact FIR and
-    ``dpll_fused`` (fast_dpll) or ``dpll_scan`` (the default), and
-    ``demod.hdlc_scan`` deframes them.  Each kernel wrapper launches its
-    CUDA kernel for a CUDA tensor and runs its plain version for a CPU
-    tensor; every branch gives the exact chain's result bit for bit.
-
-    The JAX function's ``exact_fir`` (the ``fir_conv`` FIR) and
-    ``pretiled_streams`` (the pretiled ingest) are not ported: the FIR is
-    always the exact one and the input always row-major."""
-    s = samples.shape[0]
-    if device_crc and not fused_pipeline:
-        raise ValueError("device_crc requires fused_pipeline")
-    if fused_pipeline:
+def _fused_step(samples, n_valid, carry, frame_slots, block_base, fir_mode,
+                lost2_lo, lost2_hi, assume_full, pretiled_streams,
+                kernel_compact):
+    """The fused branches of ``decode_block``: kernel B1
+    (``kernel_compact``) or kernel B2 and ``compact_candidates``.
+    Returns (carry', frames)."""
+    kw = dict(block_base=block_base, fir_mode=fir_mode, lost2_lo=lost2_lo,
+              lost2_hi=lost2_hi, assume_full=assume_full,
+              pretiled_streams=pretiled_streams)
+    if kernel_compact:
+        # in-kernel compaction: dense frame slots straight from the
+        # kernel, the [S, K] candidate axis never exists
         (count_raw, words, length, start, end, lost2, over,
          history, dpll_state, hdlc_state) = pipeline_fused_compact(
             samples, n_valid, carry.history, carry.dpll, carry.hdlc,
-            frame_slots=frame_slots, block_base=block_base,
-            lost2_lo=lost2_lo, lost2_hi=lost2_hi)
+            frame_slots=frame_slots, **kw)
         # count_raw is not clipped to the slots: the excess was dropped
         frames = demod.FrameBatch(
             words=words, length=length, start=start, end=end,
             count=torch.clamp(count_raw, max=frame_slots), lost2=lost2,
             dropped=over + torch.clamp(count_raw - frame_slots, min=0),
             crcfail=torch.zeros_like(count_raw))
+    else:
+        (cand_valid, cw, cl, cs, ce, lost2, over,
+         history, dpll_state, hdlc_state) = pipeline_fused(
+            samples, n_valid, carry.history, carry.dpll, carry.hdlc, **kw)
+        frames = demod.compact_candidates(
+            demod.init_frames(cand_valid.shape[0], frame_slots,
+                              samples.device),
+            cand_valid, cw, cl, cs, ce, lost2=lost2, over=over)
+    return PipelineCarry(history, dpll_state, hdlc_state), frames
+
+
+def decode_block(samples: torch.Tensor, n_valid: int, carry: PipelineCarry,
+                 frame_slots: int = 32, block_base: int = 0,
+                 fast_dpll: bool = False, fused_frontend: bool = False,
+                 fused_pipeline: bool = False, device_crc: bool = False,
+                 lost2_lo: Optional[int] = None,
+                 lost2_hi: Optional[int] = None, exact_fir: bool = True,
+                 lobe_fir: bool = False, mxu_fir: bool = False,
+                 kernel_compact: bool = False,
+                 pretiled_streams: Optional[int] = None,
+                 with_peak: bool = True, assume_full: bool = False
+                 ) -> Tuple[PipelineCarry, demod.FrameBatch, torch.Tensor]:
+    """samples: int16 [S, T], or with ``pretiled_streams=S`` the block
+    time-major, [T, S] (``ops.fused.tile_superblock``); n_valid: samples
+    actually present (short final blocks are padded to T); block_base:
+    absolute index of sample 0.  Returns (carry', frames, peak [S]).
+
+    fused_pipeline runs the fused step: kernel B2
+    (``ops.fused.pipeline_fused``) whose frame candidates
+    ``demod.compact_candidates`` compacts, or with kernel_compact kernel
+    B1 (``pipeline_fused_compact``), which returns dense frame slots;
+    device_crc then CRC-checks them on the device and keeps only passing
+    frames (rejects counted in ``frames.crcfail``).  lobe_fir selects
+    the kernels' main-lobe FIR; assume_full promises n_valid == T (a
+    checked promise: the kernels have no variant without the per-sample
+    gates); with_peak False skips the level meter's pass over the block.
+    The pretiled input takes the fused branches only and without the
+    peak, as in the JAX package, but unlike there it may be a short
+    block: its history comes from the time-major rows for any n_valid,
+    so it needs no assume_full.  Otherwise the block is cut
+    into 4-sample bit slots by ``ops.fused.frontend_fused``
+    (fused_frontend) or by the FIR (``fir_exact``, or ``fir_conv`` when
+    exact_fir is False) and ``dpll_fused`` (fast_dpll) or ``dpll_scan``
+    (the default), and ``demod.hdlc_scan`` deframes them.  Each kernel
+    wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
+    version for a CPU tensor; every branch but the lobe and convolution
+    FIRs gives the exact chain's result bit for bit.
+
+    The JAX function's ``mxu_fir`` is not ported (it raises), nor are
+    its TPU tiling knobs."""
+    if mxu_fir:
+        raise NotImplementedError("mxu_fir: the mxu FIR mode is not ported")
+    if device_crc and not fused_pipeline:
+        raise ValueError("device_crc requires fused_pipeline")
+    if lobe_fir and not fused_pipeline:
+        raise ValueError("lobe_fir requires fused_pipeline")
+    if kernel_compact and not fused_pipeline:
+        raise ValueError("kernel_compact requires fused_pipeline")
+    if pretiled_streams is not None and (not fused_pipeline or with_peak):
+        raise ValueError("pretiled_streams requires fused_pipeline and "
+                         "with_peak=False")
+    if fused_pipeline:
+        carry, frames = _fused_step(
+            samples, n_valid, carry, frame_slots, block_base,
+            "lobe" if lobe_fir else "vpu", lost2_lo, lost2_hi, assume_full,
+            pretiled_streams, kernel_compact)
+        s = frames.count.shape[0]
         if device_crc:
             frames = _device_crc_filter(frames, s, frame_slots)
+        # block_peak re-reads the whole raw block; throughput callers
+        # that feed no level monitor skip it
+        peak = fir.block_peak(samples) if with_peak else \
+            torch.zeros((s,), dtype=torch.int32, device=samples.device)
+        return carry, frames, peak
+    s = samples.shape[0]
+    if fused_frontend:
+        slots = frontend_fused(samples, n_valid, carry.history, carry.dpll,
+                               block_base)
     else:
-        if fused_frontend:
-            slots = frontend_fused(samples, n_valid, carry.history,
-                                   carry.dpll, block_base)
-        else:
-            slots = bit_slots(samples, n_valid, carry.history, carry.dpll,
-                              block_base, fast_dpll=fast_dpll)
-        gbits, gvalid, gpos, history, dpll_state = slots
-        hdlc_state, frames = demod.hdlc_scan(
-            gbits, gvalid, carry.hdlc,
-            demod.init_frames(s, frame_slots, samples.device), gpos,
-            lost2_lo=lost2_lo, lost2_hi=lost2_hi)
+        slots = bit_slots(samples, n_valid, carry.history, carry.dpll,
+                          block_base, fast_dpll=fast_dpll,
+                          exact_fir=exact_fir)
+    gbits, gvalid, gpos, history, dpll_state = slots
+    hdlc_state, frames = demod.hdlc_scan(
+        gbits, gvalid, carry.hdlc,
+        demod.init_frames(s, frame_slots, samples.device), gpos,
+        lost2_lo=lost2_lo, lost2_hi=lost2_hi)
     peak = fir.block_peak(samples)
     return PipelineCarry(history, dpll_state, hdlc_state), frames, peak
 
@@ -133,8 +192,11 @@ def decode_superblock(samples: torch.Tensor, n_valid: int,
                       **flags) -> Tuple[PipelineCarry, demod.FrameBatch,
                                         torch.Tensor]:
     """Decode ``n_blocks`` consecutive blocks of ``samples`` (int16
-    [S, n_blocks * T], row-major) in turn through ``decode_block``, the
-    carry chained from each block to the next on the device.
+    [S, n_blocks * T], row-major; or with ``pretiled_streams`` in
+    ``flags`` [n_blocks, T, S], each block time-major, as
+    ``ops.fused.tile_superblock`` makes it) in turn through
+    ``decode_block``, the carry chained from each block to the next on
+    the device.
 
     n_valid counts over the whole superblock: block k decodes
     ``clip(n_valid - k*T, 0, T)`` samples at ``block_base + k*T``.
@@ -142,15 +204,24 @@ def decode_superblock(samples: torch.Tensor, n_valid: int,
     leading [n_blocks] axis and peak [S] the maximum over the blocks.
     The same result as n_blocks sequential ``decode_block`` calls with
     the same ``flags``."""
-    s, total = samples.shape
-    if n_blocks < 1 or total % n_blocks:
-        raise ValueError(f"{total} samples do not split into {n_blocks} blocks")
-    t = total // n_blocks
+    if flags.get("pretiled_streams") is not None:
+        if samples.dim() != 3 or samples.shape[0] != n_blocks:
+            raise ValueError(f"pretiled superblock {tuple(samples.shape)} "
+                             f"is not [{n_blocks}, T, S]")
+        t = samples.shape[1]
+        blocks = samples.unbind(0)
+    else:
+        total = samples.shape[1]
+        if n_blocks < 1 or total % n_blocks:
+            raise ValueError(f"{total} samples do not split into "
+                             f"{n_blocks} blocks")
+        t = total // n_blocks
+        blocks = [samples[:, k * t:(k + 1) * t] for k in range(n_blocks)]
     per_block, peaks = [], []
-    for k in range(n_blocks):
+    for k, xb in enumerate(blocks):
         nv = min(max(int(n_valid) - k * t, 0), t)
         carry, frames, peak = decode_block(
-            samples[:, k * t:(k + 1) * t], nv, carry, frame_slots=frame_slots,
+            xb, nv, carry, frame_slots=frame_slots,
             block_base=block_base + k * t, **flags)
         per_block.append(frames)
         peaks.append(peak)
@@ -177,13 +248,13 @@ def _reg_to_bits(words: np.ndarray, nbits: int) -> np.ndarray:
 def extract_frames(frames: demod.FrameBatch) -> List[List[Frame]]:
     """Host drain: CRC-check each snapshot; returns per-stream lists of
     Frame (crc_ok False entries kept for the wrong-CRC counter).  Uses
-    the shared native drain when it is available."""
+    the native drain (``native.drain_frames``) when it is available."""
     words = frames.words.cpu().numpy().view(np.uint32)
     length = frames.length.cpu().numpy()
     count = frames.count.cpu().numpy()
     n_streams = words.shape[0]
 
-    from gnuais_tpu import native
+    from .. import native
     if native.available():
         out: List[List[Frame]] = [[] for _ in range(n_streams)]
         for s_idx, payload, flen, ok in native.drain_frames(words, length,
@@ -223,23 +294,33 @@ class BatchPipeline:
 
     The flags select ``decode_block``'s branch; the kernel paths
     (fast_dpll, fused_frontend, fused_pipeline) take blocks of a multiple
-    of 512 samples, as in the JAX package."""
+    of 512 samples, as in the JAX package.  ``kernel_flags`` pass
+    straight to ``decode_block``: ``kernel_compact`` (kernel B1 instead
+    of B2), ``with_peak`` and ``assume_full``; the JAX package's TPU
+    tiling knobs are not ported, so ``decode_block`` refuses them."""
 
     def __init__(self, n_streams: int, block_len: int = 49_152,
                  frame_slots: int = 32, fast_dpll: bool = False,
                  fused_frontend: bool = False, fused_pipeline: bool = False,
-                 device_crc: bool = False,
-                 device: torch.device | str = "cuda"):
+                 device_crc: bool = False, exact_fir: bool = True,
+                 mxu_fir: bool = False, lobe_fir: bool = False,
+                 device: torch.device | str = "cuda", **kernel_flags):
         if (fast_dpll or fused_frontend or fused_pipeline) and block_len % 512:
             raise ValueError("kernel path: block_len % 512 == 0")
         if device_crc and not fused_pipeline:
             raise ValueError("device_crc requires fused_pipeline")
+        if lobe_fir and not fused_pipeline:
+            raise ValueError("lobe_fir requires fused_pipeline")
+        if mxu_fir:
+            raise NotImplementedError("mxu_fir: the mxu FIR mode is not ported")
         self.device = resolve_device(device)
         self.n_streams = n_streams
         self.block_len = block_len
         self.frame_slots = frame_slots
         self.flags = dict(fast_dpll=fast_dpll, fused_frontend=fused_frontend,
-                          fused_pipeline=fused_pipeline, device_crc=device_crc)
+                          fused_pipeline=fused_pipeline, device_crc=device_crc,
+                          exact_fir=exact_fir, lobe_fir=lobe_fir,
+                          **kernel_flags)
         self.carry = init_carry(n_streams, self.device)
         self.counters = [StreamCounters() for _ in range(n_streams)]
 
@@ -333,8 +414,9 @@ class TorchReceiver:
     (``run_block``, ``counters``), for ``DecodeSession`` and the CLI.
 
     ``fast_dpll`` selects the DPLL kernel (B4; block_len a multiple of
-    512), ``fused_pipeline`` the fused kernel with dense slots (B1; block
-    length rounded up to a multiple of 512)."""
+    512), ``fused_pipeline`` the fused kernel with frame candidates (B2,
+    as the JAX package's receiver runs it; block length rounded up to a
+    multiple of 512)."""
 
     def __init__(self, name: str = "A", block_len: int = 1020,
                  frame_slots: int = 16, fast_dpll: bool = False,

@@ -31,7 +31,7 @@ from typing import Deque, Iterable, List, Optional
 import numpy as np
 import torch
 
-from gnuais_tpu.golden.model import Frame
+from ..golden.model import Frame
 
 from ..ops import demod
 from .pipeline import BatchPipeline

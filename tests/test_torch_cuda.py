@@ -1,6 +1,9 @@
-"""The CUDA kernels (B1 ``pipeline_fused_compact``, B3 ``frontend_fused``,
-B4 ``dpll_fused``) against their plain PyTorch versions on the card,
-bitwise, and the paths through them against the CPU.  Needs an NVIDIA GPU with nvcc (sm_90a): every test here is
+"""The CUDA kernels (B1 ``pipeline_fused_compact`` and B2
+``pipeline_fused``, each with the exact and the lobe FIR, B3
+``frontend_fused``, B4 ``dpll_fused``) against their plain PyTorch
+versions on the card, bitwise, and the paths through them (pretiled
+input included) against the CPU; ``fir_conv`` with TF32 off.  Needs an
+NVIDIA GPU with nvcc (sm_90a): every test here is
 marked ``cuda`` and skips without a device.  Imports no JAX, so it runs
 where JAX is not installed:
 
@@ -12,6 +15,7 @@ import pytest
 import torch
 
 from gnuais_tpu_torch import captures
+from gnuais_tpu_torch.constants import FIR_LEN, FIR_TAPS
 from gnuais_tpu_torch.ops import crc, fir, fused
 from gnuais_tpu_torch.runtime.pipeline import (BatchPipeline, PipelineCarry,
                                                decode_block, init_carry)
@@ -75,6 +79,29 @@ def test_kernel_matches_plain(cuda, case):
     _assert_same(k, p)
 
 
+@pytest.mark.parametrize("fir_mode", ["vpu", "lobe"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_candidates_kernel_matches_plain(cuda, case, fir_mode):
+    """Kernel B2 against its plain version, every leaf (the empty
+    candidate slots included: both zero them), and B1 with the same FIR
+    against its plain version and against B2's candidates compacted."""
+    build, s, nv, fs, base, window = CASES[case]
+    x = torch.from_numpy(build(s, T, seed=len(case))).to(cuda)
+    lo, hi = window or (None, None)
+    c = init_carry(s, cuda)
+    kw = dict(block_base=base, fir_mode=fir_mode, lost2_lo=lo, lost2_hi=hi)
+    args = (x, nv, c.history, c.dpll, c.hdlc)
+    before = fused.pipeline_fused.launches
+    k2 = fused.pipeline_fused(*args, **kw)
+    assert fused.pipeline_fused.launches == before + 1
+    k1, p1 = _pair(x, nv, c, frame_slots=fs, **kw)
+    p2 = fused.pipeline_fused_reference(*args, **kw)
+    assert k2[0].shape == (s, fused.n_candidates(T))
+    _assert_same(k2, p2)
+    _assert_same(k1, p1)
+    _assert_same(fused.compact_slots(k2, fs), k1)
+
+
 def test_kernel_rejects_mismatched_state(cuda):
     """The wrapper checks every state leaf before passing pointers: a
     carry for fewer streams, or one left on the CPU, raises and launches
@@ -128,18 +155,70 @@ def test_crc_check_exact_under_tf32(cuda):
     assert torch.equal(got.cpu(), want)
 
 
-def test_fused_decode_block_on_card_matches_cpu(cuda):
-    """The whole fused branch with the device CRC filter: the card's
-    FrameBatch and carry equal the CPU run's."""
+@pytest.mark.parametrize("lobe", [False, True], ids=["vpu", "lobe"])
+@pytest.mark.parametrize("compact", [False, True], ids=["b2", "b1"])
+def test_fused_decode_block_on_card_matches_cpu(cuda, compact, lobe):
+    """The whole fused branch (B2 and compaction, or B1) with the device
+    CRC filter: the card's FrameBatch and carry equal the CPU run's."""
     s = 64
     x = captures.mixed(s, T, seed=11)
     out = []
     for dev in (cuda, torch.device("cpu")):
         c, f, p = decode_block(torch.from_numpy(x).to(dev), T,
                                init_carry(s, dev), frame_slots=16,
-                               fused_pipeline=True, device_crc=True)
+                               fused_pipeline=True, device_crc=True,
+                               kernel_compact=compact, lobe_fir=lobe)
         out.append([t.cpu() for t in _flat((c, f, p))])
     _assert_same(out[0], out[1])
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["b2", "b1"])
+def test_pretiled_on_card_matches_row_major(cuda, compact):
+    """decode_block on a time-major block (tile_superblock) equals the
+    row-major call on the card and the CPU's pretiled call: FrameBatch
+    and carry, over two chained blocks, a full one (assume_full) and a
+    short one."""
+    s = 64
+    x = torch.from_numpy(captures.mixed(s, 2 * T, seed=14))
+    kw = dict(frame_slots=16, fused_pipeline=True, kernel_compact=compact,
+              device_crc=True, with_peak=False)
+    out = []
+    for dev, pretiled in ((cuda, False), (cuda, True), ("cpu", True)):
+        c, leaves = init_carry(s, dev), []
+        tiles = fused.tile_superblock(x.to(dev), 2)
+        for b, nv in enumerate((T, T - 333)):
+            xb = tiles[b] if pretiled else x[:, b * T:(b + 1) * T].to(dev)
+            c, f, _ = decode_block(xb, nv, c, block_base=b * T,
+                                   pretiled_streams=s if pretiled else None,
+                                   assume_full=nv == T, **kw)
+            leaves += [t.cpu() for t in _flat((c, f))]
+        out.append(leaves)
+    _assert_same(out[0], out[1])
+    _assert_same(out[1], out[2])
+
+
+def test_fir_conv_on_card_keeps_tf32_off(cuda):
+    """fir_conv on the card with the global cuDNN TF32 flag on: within
+    float32 reassociation (2 * 36 * 2^-24 of the products' magnitudes)
+    of a float64 sum, which TF32's 10-bit mantissa would exceed, and the
+    flag is as it was afterwards."""
+    s = 16
+    x = captures.noisy_frames(s, T, seed=15)
+    h = captures.garbage(s, FIR_LEN, seed=16).astype(np.float32)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        out, hist = fir.fir_conv(torch.from_numpy(x).to(cuda),
+                                 torch.from_numpy(h).to(cuda))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    full = np.concatenate([h, x.astype(np.float32)], axis=1).astype(np.float64)
+    taps = np.asarray(FIR_TAPS, np.float32).astype(np.float64)
+    want = sum(full[:, i:i + T] * taps[i] for i in range(FIR_LEN))
+    mag = sum(np.abs(full[:, i:i + T] * taps[i]) for i in range(FIR_LEN))
+    assert np.all(np.abs(out.cpu().numpy() - want) <= 2 * 36 * 2**-24 * mag)
+    assert torch.equal(hist.cpu(), torch.from_numpy(x[:, -FIR_LEN:]).float())
 
 
 def test_batch_pipeline_on_card(cuda):

@@ -1,7 +1,8 @@
-"""The PyTorch port's package boundary: it imports no JAX, it never
-answers a request for the card with the CPU, and its CUDA sources carry
-the exact constants of the JAX package."""
+"""The PyTorch port's package boundary: it imports neither JAX nor the
+JAX package, it never answers a request for the card with the CPU, and
+its CUDA sources carry the exact constants of the JAX package."""
 
+import ast
 import re
 import subprocess
 import sys
@@ -29,19 +30,38 @@ MODULES = [
     "gnuais_tpu_torch.runtime.pipeline",
     "gnuais_tpu_torch.runtime.batch",
     "gnuais_tpu_torch.runtime.streaming",
+    # the port's own copies of the JAX package's host modules
+    "gnuais_tpu_torch.constants",
+    "gnuais_tpu_torch.config",
+    "gnuais_tpu_torch.ais",
+    "gnuais_tpu_torch.ais.bits",
+    "gnuais_tpu_torch.ais.nmea",
+    "gnuais_tpu_torch.ais.parser",
+    "gnuais_tpu_torch.ais.dispatcher",
+    "gnuais_tpu_torch.golden",
+    "gnuais_tpu_torch.golden.model",
+    "gnuais_tpu_torch.golden.encoder",
+    "gnuais_tpu_torch.native",
+    "gnuais_tpu_torch.io",
+    "gnuais_tpu_torch.io.audio",
+    "gnuais_tpu_torch.io.sinks",
+    "gnuais_tpu_torch.runtime.metrics",
+    "gnuais_tpu_torch.runtime.session",
 ]
 
 
 def test_port_imports_without_jax():
     """Every module imports in a fresh interpreter where ``import jax``
-    fails (tests/conftest.py imports jax in this process)."""
+    and ``import gnuais_tpu`` fail (tests/conftest.py imports both in
+    this process)."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['gnuais_tpu'] = None\n"
             "import importlib\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
-            "             m.startswith(('jax.', 'jaxlib')))\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'gnuais_tpu')\n"
+            "             or m.startswith(('jax.', 'jaxlib', 'gnuais_tpu.')))\n"
             "bad = [m for m in bad if sys.modules[m] is not None]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
@@ -49,6 +69,32 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def _imported_modules(path: Path):
+    """(line, module) of every import statement in a Python file; a
+    relative import counts as its resolved ``gnuais_tpu_torch`` name."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                yield node.lineno, "gnuais_tpu_torch"
+            else:
+                yield node.lineno, node.module
+
+
+def test_no_source_imports_the_jax_package():
+    """An ast scan of every .py file of the port and of chip_smoke.py:
+    no import of ``gnuais_tpu`` (or a module of it) or of ``jax``."""
+    files = sorted((REPO / "gnuais_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 30
+    bad = [f"{p.relative_to(REPO)}:{line} {mod}"
+           for p in files for line, mod in _imported_modules(p)
+           if mod.split(".")[0] in ("gnuais_tpu", "jax", "jaxlib")]
+    assert not bad, bad
 
 
 def test_resolve_device_never_falls_back():
