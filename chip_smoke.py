@@ -9,8 +9,9 @@ raises and exits non-zero:
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Build: one nvcc per kernel source of gnuais_tpu_torch/csrc (B1
    pipeline_compact.cu, B2 pipeline_fused.cu, B3 frontend.cu, B4
-   dpll.cu), all started together, linked into one library (registers
-   and spills printed per kernel).
+   dpll.cu, the mxu probe fir_probe.cu, R1 and R2 roofline.cu), all
+   started together, linked into one library (registers and spills
+   printed per kernel).
 3. Parity at small shapes, each kernel against its plain PyTorch version
    on the card, bitwise on every output and carry leaf.  B2 and B1 (the
    exact FIR): S = 1, 37, 256 at T = 4096 (and T = 1000) on encoder
@@ -24,6 +25,11 @@ raises and exits non-zero:
    exact FIR of the same captures).  Then B2, B1, B3 and B4 on every
    block the fixture gives the command line (phases 5 and 12): S = 1,
    T = 1024, n_valid 1020 and a 990-sample tail, 73 blocks chained.
+   B2 and B1 with the mxu FIR (tensor cores) against their plain
+   versions at the small shapes above, every leaf, and B1 mxu against
+   B1 with the exact FIR: the same frames and carry on every capture
+   row; on rows of noise alone the same CRC-passing frames, the rows
+   whose carry differs counted.
 4. Main path at full size: BatchPipeline(4096 streams, 49,152-sample
    blocks, 32 frame slots, fused_pipeline, CRC on the device), which runs
    kernel B2 and the candidate compaction, over three chained blocks;
@@ -45,9 +51,20 @@ raises and exits non-zero:
    call with kernel_compact (one launch of B1); frames and carry equal
    the row-major path's 12 chained blocks, every payload equals the
    encoded one.
+   6 mxu: the same for B2 and B1 with the mxu FIR, and B1 mxu's frames
+   and carry against B1 exact's on the block.
+7m. Path M: bench.py's headline configurations, which run the mxu FIR
+   (CONFIGS[0..2]), at full width on 12 copies of a 4-payload fleet
+   block, [589,824, 4096]: one pretiled decode_block with kernel_compact
+   (1 launch of B1), the same with B2 (1 launch), and the row-major
+   decode_superblock (12 launches of B2); the same frames from all
+   three, every payload equal to the encoded one, no CRC reject.  The
+   first 64 streams of CONFIGS[0] and [1] at their full length against
+   the plain version (frames and carry, bitwise), which a child process
+   runs on the CPU during phases 8m-14 and which is read after them.
 8. Lobe paths: BatchPipeline(fused_pipeline, device_crc, lobe_fir) over
    the three fleet blocks with B2 and with kernel_compact (B1); every
-   payload equals the encoded one.
+   payload equals the encoded one.  8m: the same with mxu_fir.
 9. Path S: PipelinedDecoder(4096 streams, 49,152-sample blocks,
    fused_frontend, depth 2) over two fleet blocks: kernel B3 and the
    plain deframer; every payload equal to the encoded ones, counters
@@ -61,10 +78,18 @@ raises and exits non-zero:
 12. Path F: ``gnuais-tpu-torch -l tests/fixtures/standard_capture.raw
    --backend fast`` (kernel B4) reproduces the stdout byte for byte
    with counters (49, 0, 0).
-Then one JSON line of the six kernel modes (launch counts from their own
+13. Probe: the mxu FIR alone (fir_mxu_probe) on the first fleet block,
+   within fused.MXU_BOUND of the exact FIR; its error, time and bound.
+14. Path R: the roofline tool's kernels R1 and R2 in every mode against
+   their plain versions at S = 64, bitwise, and at S = 4096 (timed);
+   then the tool's table (python -m gnuais_tpu_torch.roofline) at 4096
+   and 16,384 streams, beside B1's ns a sample from phase 6.
+Then one JSON line of the ten kernel modes (launch counts from their own
 paths, each count set to 0 just before its path: B2 over phases 4-5, B1
-in phase 7's pretiled call, B2 lobe and B1 lobe over phase 8, B3 over
-phase 9, B4 over phase 12; times and bounds at the fleet size), a check
+in phase 7's pretiled call, B2 lobe and B1 lobe over phase 8, B1 mxu and
+B2 mxu over phases 7m and 8m, B3 over phase 9, B4 over phase 12, R1 and
+R2 over phase 14's table; times and bounds at the fleet size, R1's and
+R2's at 4096 streams and 4096 steps), a check
 that neither JAX nor the JAX package was imported, the card's name and
 power limit, and the result line {"ok": true, "device": {...}}.
 
@@ -94,17 +119,20 @@ VARIANTS = 32            # distinct captures per block, cycled over streams
 CLI_BLOCK = 1020         # the CLI's file-mode block: 1024 in whole 5-sample bits
 KERNEL_BLOCK = 1024      # the kernel backends pad it to a multiple of 512
 FIXTURE_SLOTS = 32       # the config's default frameslots
+ROOFLINE_STEPS = 1 << 22  # R1's steps a call (R2: 2^17, 32 passes)
+ROOFLINE_ITERS = 3
 FLAGSHIP_COPIES = 12     # bench.py's bit-exact flagship: superblock 12,
 FLAGSHIP_PAYLOADS = 4    # 4 payloads per stream and block,
 FLAGSHIP_SLOTS = 64      # 64 frame slots over the superblock
-# the bound's rates: one H100 SXM's HBM and its float32 rate outside the
-# tensor cores (NVIDIA's data sheet, at the 700 W power limit)
-HBM_TB_S = 3.35
-F32_TFLOPS = 67.0
-# float32 operations per valid sample of each FIR: the exact FIR's 36
-# multiplies and 35 adds, the lobe FIR's 8 pair adds, 8 multiplies and 7
-# adds; the integer DPLL and deframer work is not counted
-FIR_FLOPS = {"vpu": 71, "lobe": 23}
+PATH_M_CHECKED = 64      # Path M's streams held against the plain version
+# operations per valid sample of each FIR that the function needs: the
+# exact FIR's 36 float32 multiplies and 35 adds, the lobe FIR's 8 pair
+# adds, 8 multiplies and 7 adds; the mxu FIR's 36 taps in 3 TF32 passes
+# (3xTF32), 108 tensor-core multiply-adds or 216 operations (the kernel
+# issues 168 multiply-adds a sample, the band's zeros in its tiles
+# included, which the bound does not count); the integer DPLL and
+# deframer work is not counted.  The rates: gnuais_tpu_torch.card.
+FIR_FLOPS = {"vpu": 71, "lobe": 23, "mxu": 216}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -434,18 +462,18 @@ def phase_end_to_end(backend: str, label: str):
           f"counters (49, 0, 0)", flush=True)
 
 
-def bound(tensors, flops: float):
-    """The least time the card could take for a call: the larger of the
-    bytes of ``tensors`` (its inputs and outputs, each counted once) over
-    HBM_TB_S and ``flops`` float32 operations over F32_TFLOPS.  Returns
-    (ms, "bytes" or "operations")."""
+def bound(tensors, flops: float, tensor_cores: bool = False):
+    """The least time the card could take for a call (``card.bound_ms``):
+    the larger of the bytes of ``tensors`` (its inputs and outputs, each
+    counted once) over the HBM rate and ``flops`` operations over the
+    float32 rate outside the tensor cores, or with ``tensor_cores`` the
+    TF32 rate.  Returns (ms, "bytes" or "operations")."""
     import torch
+    from gnuais_tpu_torch import card
     nbytes = sum(t.numel() * t.element_size() for t in leaves(tensors)
                  if isinstance(t, torch.Tensor))
-    by_bytes = nbytes / (HBM_TB_S * 1e9)
-    by_ops = flops / (F32_TFLOPS * 1e9)
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
+    return card.bound_ms(nbytes, (flops, card.TF32_TFLOPS if tensor_cores
+                                  else card.F32_TFLOPS))
 
 
 def phase_full_block(x0, carry0, carry1, fir_mode):
@@ -477,7 +505,8 @@ def phase_full_block(x0, carry0, carry1, fir_mode):
         *targs, frame_slots=FLEET_SLOTS, **pre))
     step_ms, _ = device_ms(lambda: decode_block(
         x, FLEET_BLOCK, carry0, frame_slots=FLEET_SLOTS, fused_pipeline=True,
-        device_crc=True, lobe_fir=fir_mode == "lobe"))
+        device_crc=True, lobe_fir=fir_mode == "lobe",
+        mxu_fir=fir_mode == "mxu"))
     plain2, p2 = host_ms(lambda: fused.pipeline_fused_reference(
         *args, fir_mode=fir_mode))
     compact_ms, p1 = host_ms(lambda: fused.compact_slots(p2, FLEET_SLOTS))
@@ -504,9 +533,11 @@ def phase_full_block(x0, carry0, carry1, fir_mode):
     for name, ms, k, plain_ms, err in (("B2", ms2, k2, plain2, err2),
                                        ("B1", ms1, k1, plain2 + compact_ms,
                                         err1)):
-        b_ms, b_by = bound((args, k), flops)
+        b_ms, b_by = bound((args, k), flops, fir_mode == "mxu")
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+                         bound_ms=b_ms, bound_by=b_by, pretiled_ms=(
+                             pre2_ms if name == "B2" else pre1_ms))
+    out["B1"]["out"] = k1
     print(f"[6 full block] {fir_mode} S={FLEET_STREAMS} T={FLEET_BLOCK}: B2 "
           f"wrapper {ms2:.3f} ms (bound {out['B2']['bound_ms']:.3f} ms by "
           f"{out['B2']['bound_by']}), B1 wrapper {ms1:.3f} ms (bound "
@@ -787,7 +818,8 @@ def phase_flagship():
     kernel B1 over 589,824 samples per stream.  Its frames equal the
     row-major path's (12 blocks through decode_block with kernel_compact,
     chained), and every payload equals the encoded one, 12 times.
-    Returns B1's launches in the pretiled call and its time."""
+    Returns B1's launches in the pretiled call, its time and its
+    frames."""
     import torch
     from gnuais_tpu_torch.ops import fused
     from gnuais_tpu_torch.runtime.pipeline import (decode_block,
@@ -831,41 +863,410 @@ def phase_flagship():
           f"{peak_gb:.1f} GB; frames and carry == the row-major path's 12 "
           f"chained blocks, bitwise; all {n_frames} payloads equal the "
           f"encoded ones ({n} per stream)", flush=True)
-    return launches, wall
+    return launches, wall, frames
 
 
-def phase_lobe_paths(blocks, expected):
-    """The lobe FIR on the fleet: BatchPipeline(fused_pipeline,
-    device_crc, lobe_fir) over the three fleet blocks, once with kernel
-    B2 and once with kernel_compact (B1); every payload equal to the
-    encoded ones (the lobe mode is held to packet parity) and the
-    counters clean.  Returns each kernel's launches on its path."""
+def phase_fir_paths(blocks, expected, fir_mode: str, label: str):
+    """The lobe or mxu FIR on the fleet: BatchPipeline(fused_pipeline,
+    device_crc, lobe_fir or mxu_fir) over the three fleet blocks, once
+    with kernel B2 and once with kernel_compact (B1); every payload equal
+    to the encoded ones (both modes are held to packet parity) and the
+    counters clean.  Returns each kernel's launches on its path (the
+    counts are not reset here)."""
     from gnuais_tpu_torch.ops import fused
     from gnuais_tpu_torch.runtime.pipeline import BatchPipeline
     launches = {}
     for name, wrapper, compact in (("B2", fused.pipeline_fused, False),
                                    ("B1", fused.pipeline_fused_compact, True)):
-        wrapper.launches = 0
+        before = wrapper.launches
         pipe = BatchPipeline(FLEET_STREAMS, block_len=FLEET_BLOCK,
                              frame_slots=FLEET_SLOTS, fused_pipeline=True,
-                             device_crc=True, lobe_fir=True,
-                             kernel_compact=compact, device="cuda")
+                             device_crc=True, kernel_compact=compact,
+                             device="cuda", **{f"{fir_mode}_fir": True})
         t0 = time.perf_counter()
-        n = sum(check_payloads(pipe.process(x), want, f"{name} lobe block {b}")
+        n = sum(check_payloads(pipe.process(x), want,
+                               f"{name} {fir_mode} block {b}")
                 for b, (x, want) in enumerate(zip(blocks, expected)))
         wall = time.perf_counter() - t0
-        launches[name] = wrapper.launches
+        launches[name] = wrapper.launches - before
         check(launches[name] == len(blocks),
-              f"{name} lobe launched {launches[name]} times")
+              f"{name} {fir_mode} launched {launches[name]} times")
         for i, c in enumerate(pipe.counters):
             check((c.lostframes, c.lostframes2) == (0, 0),
-                  f"{name} lobe stream {i} counters {c}")
-        print(f"[8 lobe paths] BatchPipeline(fused_pipeline, device_crc, "
-              f"lobe_fir, kernel_compact={compact}): {len(blocks)} blocks, "
-              f"{n} frames, all payloads equal the encoded ones, counters "
-              f"clean; kernel {name} lobe launches {launches[name]}; "
-              f"{wall:.1f} s", flush=True)
+                  f"{name} {fir_mode} stream {i} counters {c}")
+        print(f"[{label}] BatchPipeline(fused_pipeline, device_crc, "
+              f"{fir_mode}_fir, kernel_compact={compact}): {len(blocks)} "
+              f"blocks, {n} frames, all payloads equal the encoded ones, "
+              f"counters clean; kernel {name} {fir_mode} launches "
+              f"{launches[name]}; {wall:.1f} s", flush=True)
     return launches
+
+
+def mxu_against(k1, v1, strict, what: str) -> int:
+    """B1's mxu outputs ``k1`` against another B1 run ``v1`` (the exact
+    FIR's, or the mxu FIR's on other tiles): on the rows ``strict``
+    (encoder captures) every frame leaf (count_raw, words, length,
+    start, end) and the carry (history, DPLL, deframer) equal; on the
+    other rows (noise alone) the CRC-passing frames equal.  Returns how
+    many of the other rows' carries differ, for the caller to print."""
+    import torch
+    from gnuais_tpu_torch.ops import crc
+    def row_differs(a, b):
+        d = a != b
+        return d.flatten(1).any(dim=1) if d.dim() > 1 else d
+
+    rows = torch.nonzero(strict).flatten()
+    for i, (a, b) in enumerate(zip(leaves(k1[:5]) + leaves(k1[7:]),
+                                   leaves(v1[:5]) + leaves(v1[7:]))):
+        bad = row_differs(a[rows], b[rows])
+        check(not bool(bad.any()),
+              f"{what}: leaf {i} differs on {int(bad.sum())} capture rows, "
+              f"the first {rows[bad][:5].tolist()}")
+    other = torch.nonzero(~strict).flatten()
+    if not len(other):
+        return 0
+    f = k1[1].shape[1]
+
+    def passing(o):
+        n = o[0][other].clamp(max=f)
+        present = torch.arange(f, device=n.device)[None, :] < n[:, None]
+        ok = crc.crc_check_frames_linear(
+            o[1][other].reshape(-1, o[1].shape[-1]),
+            o[2][other].reshape(-1)).reshape(len(other), f)
+        keep = present & ok
+        return [o[j][other][keep] for j in range(1, 5)]
+
+    for x, y in zip(passing(k1), passing(v1)):
+        check(torch.equal(x, y), f"{what}: CRC-passing frames differ on the "
+                                 f"rows of noise")
+    differ = torch.zeros(len(other), dtype=torch.bool, device=other.device)
+    for a, b in zip(leaves(k1[7:]), leaves(v1[7:])):
+        differ |= row_differs(a[other], b[other])
+    return int(differ.sum())
+
+
+def noise_rows(maker: str, s: int):
+    """Which rows of a capture are noise alone: every row of
+    ``garbage``, every fourth (from row 1) of ``mixed``."""
+    import torch
+    r = torch.arange(s, device="cuda")
+    if maker == "garbage":
+        return torch.ones(s, dtype=torch.bool, device="cuda")
+    if maker == "mixed":
+        return r % 4 == 1
+    return torch.zeros(s, dtype=torch.bool, device="cuda")
+
+
+def phase_parity_mxu():
+    """B2 and B1 with the mxu FIR against their plain versions on the
+    card at small shapes (S = 1, 37, 256; T = 4096 and 1000; n_valid
+    T-333 and 20; frame_slots 3; three chained blocks), every output
+    and carry leaf; and B1 mxu against B1 with the exact FIR
+    (``mxu_against``).  Returns the max abs error of each against its
+    plain version."""
+    import torch
+    from gnuais_tpu_torch import captures
+    from gnuais_tpu_torch.ops import fused
+    from gnuais_tpu_torch.runtime.pipeline import PipelineCarry, init_carry
+    t = 4096
+    cases = [
+        ("S=1 frames", "frames", captures.noisy_frames(1, t, seed=1), t, 8, 0),
+        ("S=37 mixed n_valid=T-333", "mixed", captures.mixed(37, t, seed=2),
+         t - 333, 8, 77),
+        ("S=37 mixed n_valid=20", "mixed", captures.mixed(37, t, seed=3), 20,
+         8, 0),
+        ("S=256 minimal frames, 3 slots", "frames",
+         captures.minimal_frames(256, t, seed=5), t, 3, 0),
+        ("S=37 garbage", "garbage", captures.garbage(37, t, seed=6), t, 8, 0),
+        ("S=256 wrong-size and CRC rejects", "frames",
+         captures.wrong_size_and_crc(256, t, seed=7), t, 24, 0),
+        ("S=37 mixed T=1000", "mixed", captures.mixed(37, 1000, seed=9), 1000,
+         8, 5),
+    ]
+    err2 = err1 = 0.0
+    noisy_differ = 0
+    for name, maker, xn, nv, fs, base in cases:
+        x = torch.from_numpy(xn).cuda()
+        c = init_carry(x.shape[0], "cuda")
+        k2, p2, k1, p1 = run_both(x, nv, c, fs, base, fir_mode="mxu")
+        err2 = max(err2, compare(k2, p2, f"B2 mxu {name}"))
+        err1 = max(err1, compare(k1, p1, f"B1 mxu {name}"))
+        v1 = fused.pipeline_fused_compact(x, nv, c.history, c.dpll, c.hdlc,
+                                          frame_slots=fs, block_base=base)
+        strict = ~noise_rows(maker, x.shape[0])
+        noisy_differ += mxu_against(k1, v1, strict, f"B1 mxu vs vpu {name}")
+        print(f"[3 parity mxu] {name}: B2 mxu and B1 mxu bitwise equal to "
+              f"plain, frames {int(k1[0].sum())} == the exact FIR's on "
+              f"{int(strict.sum())} capture rows", flush=True)
+    x = captures.mixed(37, 3 * t, seed=8)
+    strict = ~noise_rows("mixed", 37)
+    ck = cp = cv = init_carry(37, "cuda")
+    for b in range(3):
+        nv = t if b < 2 else t - 333
+        xb = torch.from_numpy(np.ascontiguousarray(x[:, b * t:(b + 1) * t])).cuda()
+        k2, p2, k1, p1 = run_both(xb, nv, ck, 3, base=b * t, plain_carry=cp,
+                                  fir_mode="mxu")
+        err2 = max(err2, compare(k2, p2, f"B2 mxu chained block {b}"))
+        err1 = max(err1, compare(k1, p1, f"B1 mxu chained block {b}"))
+        v1 = fused.pipeline_fused_compact(xb, nv, cv.history, cv.dpll,
+                                          cv.hdlc, frame_slots=3,
+                                          block_base=b * t)
+        noisy_differ += mxu_against(k1, v1, strict,
+                                    f"B1 mxu vs vpu chained block {b}")
+        ck, cp, cv = (PipelineCarry(*k2[7:]), PipelineCarry(*p2[7:]),
+                      PipelineCarry(*v1[7:]))
+        print(f"[3 parity mxu] chained block {b}, 3 slots: B2 mxu and B1 mxu "
+              f"bitwise equal to plain, frames {int(k1[0].sum())}",
+              flush=True)
+    print(f"[3 parity mxu] rows of noise alone whose carry differs between "
+          f"the mxu and the exact FIR: {noisy_differ}", flush=True)
+    return err2, err1
+
+
+def phase_probe(x0):
+    """The mxu FIR alone (``fir_mxu_probe``) on the first fleet block at
+    full size, from a history of noise: within MXU_BOUND of the exact
+    FIR and twice that of the plain ``fir.fir_mxu``; its time, the plain
+    product's and the bound."""
+    import torch
+    from gnuais_tpu_torch import captures
+    from gnuais_tpu_torch.ops import fir, fused
+    x = torch.from_numpy(x0).cuda()
+    h = torch.from_numpy(captures.garbage(FLEET_STREAMS, 36, seed=62)
+                         .astype(np.float32)).cuda()
+    ms, k = device_ms(lambda: fused.fir_mxu_probe(x, h))
+    plain_ms, (p, _) = device_ms(lambda: fir.fir_mxu(x, h))
+    e, _ = fir.fir_exact(x, h)
+    # the taps are all >= 0, so sum_i |taps[i] x[i]| is the FIR of |x|
+    mag, _ = fir.fir_exact(x.to(torch.float32).abs(), h.abs())
+    lim = fused.MXU_BOUND[0] * mag + fused.MXU_BOUND[1]
+    d_exact, d_plain = (k - e).abs(), (k - p).abs()
+    ratio = float((d_exact / lim).max())
+    check(ratio <= 1.0, f"probe exceeds the mxu bound against fir_exact: "
+                        f"{ratio} of it")
+    check(bool((d_plain <= 2 * lim).all()), "probe far from fir_mxu")
+    n = FLEET_STREAMS * FLEET_BLOCK
+    b_ms, b_by = bound((x, h, k), FIR_FLOPS["mxu"] * n, tensor_cores=True)
+    print(f"[13 probe] fir_mxu_probe at S={FLEET_STREAMS} T={FLEET_BLOCK}: "
+          f"max |probe - fir_exact| {float(d_exact.max())} (at most "
+          f"{ratio:.4f} of MXU_BOUND), max |probe - fir_mxu| "
+          f"{float(d_plain.max())}, max |fir_mxu - fir_exact| "
+          f"{float((p - e).abs().max())}, values up to "
+          f"{float(e.abs().max()):.1f}; probe {ms:.3f} ms (bound {b_ms:.3f} "
+          f"ms by {b_by}), plain fir_mxu {plain_ms:.3f} ms (medians of 5, "
+          f"CUDA events)", flush=True)
+    return float(d_exact.max())
+
+
+def phase_full_mxu(x0, carry0, vpu_b1):
+    """B2 and B1 with the mxu FIR on the first fleet block at full size
+    (``phase_full_block``: against their plain versions, row-major and
+    pretiled), and B1 mxu's frames and carry against B1 with the exact
+    FIR's (every row is an encoder capture)."""
+    out = phase_full_block(x0, carry0, None, "mxu")
+    import torch
+    strict = torch.ones(FLEET_STREAMS, dtype=torch.bool, device="cuda")
+    mxu_against(out["B1"]["out"], vpu_b1, strict,
+                "full block, B1 mxu vs B1 exact")
+    print(f"[6 full block mxu] B1 mxu's frames and carry == B1 exact's on "
+          f"all {FLEET_STREAMS} streams", flush=True)
+    return out
+
+
+def plain_path_m(tiled: np.ndarray, total: int):
+    """Run in a child process: the plain version of Path M's CONFIGS[0]
+    step on the CPU, one pretiled decode_block(kernel_compact, mxu_fir)
+    over ``tiled`` ([total, n] int16, some of Path M's streams) from the
+    initial carry.  Returns (its carry and frames as a list of arrays,
+    seconds)."""
+    import torch
+    torch.set_num_threads(1)
+    from gnuais_tpu_torch.runtime.pipeline import decode_block, init_carry
+    t0 = time.perf_counter()
+    n = tiled.shape[1]
+    carry, frames, _ = decode_block(
+        torch.from_numpy(tiled), total, init_carry(n, "cpu"),
+        pretiled_streams=n, frame_slots=FLAGSHIP_SLOTS, fused_pipeline=True,
+        kernel_compact=True, mxu_fir=True, assume_full=True, with_peak=False)
+    return ([t.numpy() for t in leaves((carry, frames))],
+            time.perf_counter() - t0)
+
+
+def phase_path_m(flagship_frames):
+    """Path M, the JAX bench's headline configurations with the mxu FIR
+    (bench.py CONFIGS[0..2]) at full width, on phase 7's input (12
+    copies of a 4-payload fleet block, [589,824 x 4096] int16).
+    CONFIGS[0]: one pretiled decode_block with kernel_compact (one
+    launch of B1); CONFIGS[1]: the same with B2 and compaction (one
+    launch of B2); CONFIGS[2]: the row-major superblock through
+    decode_superblock (12 launches of B2).  The three give the same
+    frames as phase 7's exact FIR (``flagship_frames``), every payload
+    equals the encoded one and none is a CRC reject.  The first
+    PATH_M_CHECKED streams of CONFIGS[0] and [1], all 589,824 samples,
+    go to their plain version in a child process on the CPU, which runs
+    while the later phases do.  Returns ({config: host ms}, a function
+    that waits for the child and holds both configs' frames and carry on
+    those streams to it, bitwise, returning {kernel: max abs error})."""
+    import multiprocessing
+    import torch
+    from gnuais_tpu_torch.ops import fused
+    from gnuais_tpu_torch.runtime.pipeline import (decode_block,
+                                                   decode_superblock,
+                                                   extract_frames, init_carry)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 1)
+    x, want = fleet_block(FLEET_BLOCKS, FLAGSHIP_PAYLOADS, g)   # phase 7's
+    total = FLAGSHIP_COPIES * FLEET_BLOCK
+    n = FLAGSHIP_COPIES * FLAGSHIP_PAYLOADS
+    flags = dict(frame_slots=FLAGSHIP_SLOTS, fused_pipeline=True,
+                 mxu_fir=True, with_peak=False)
+    carry0 = init_carry(FLEET_STREAMS, "cuda")
+    x12 = x.repeat(1, FLAGSHIP_COPIES)
+    tiled = fused.tile_superblock(x12, 1)[0]
+    head = tiled[:, :PATH_M_CHECKED].contiguous().cpu().numpy()
+    walls, frames, checked = {}, {}, {}
+    for cfg, compact in (("CONFIGS[0]", True), ("CONFIGS[1]", False)):
+        wrapper = (fused.pipeline_fused_compact if compact
+                   else fused.pipeline_fused)
+        before = wrapper.launches
+        walls[cfg], (carry, f, _) = host_ms(lambda: decode_block(
+            tiled, total, carry0, pretiled_streams=FLEET_STREAMS,
+            kernel_compact=compact, assume_full=True, **flags))
+        check(wrapper.launches == before + 1, f"{cfg} launched "
+              f"{wrapper.launches - before} kernels")
+        frames[cfg] = f
+        checked[cfg] = tuple(t[:PATH_M_CHECKED].cpu()
+                             for t in leaves((carry, f)))
+    del tiled
+    compare(tuple(frames["CONFIGS[0]"]), tuple(frames["CONFIGS[1]"]),
+            "CONFIGS[0] frames vs CONFIGS[1]'s")
+    before = fused.pipeline_fused.launches
+    walls["CONFIGS[2]"], (c2, f2, _) = host_ms(lambda: decode_superblock(
+        x12, total, carry0, FLAGSHIP_COPIES, **flags))
+    check(fused.pipeline_fused.launches == before + FLAGSHIP_COPIES,
+          "CONFIGS[2] launches")
+    del x12
+    per_block = [type(frames["CONFIGS[0]"])(*(leaf[k] for leaf in f2))
+                 for k in range(FLAGSHIP_COPIES)]
+    compare(tuple(frames["CONFIGS[0]"]),
+            tuple(concat_frames(per_block, FLAGSHIP_SLOTS)),
+            "CONFIGS[0] frames vs CONFIGS[2]'s 12 blocks")
+    compare(tuple(carry), tuple(c2), "pretiled carry vs the superblock's")
+    f0 = frames["CONFIGS[0]"]
+    compare(tuple(f0), tuple(flagship_frames),
+            "CONFIGS[0] frames vs phase 7's exact FIR")
+    check(bool((f0.count == n).all()), "Path M frame counts")
+    per_stream = extract_frames(f0)
+    check(all(fr.crc_ok for lst in per_stream for fr in lst), "CRC rejects")
+    n_frames = check_payloads(per_stream, [w * FLAGSHIP_COPIES for w in want],
+                              "path M")
+    print(f"[7m path M] mxu_fir at [{total}, {FLEET_STREAMS}]: CONFIGS[0] "
+          f"(pretiled, kernel_compact, 1 launch of B1 mxu) "
+          f"{walls['CONFIGS[0]']:.1f} ms, CONFIGS[1] (pretiled, 1 launch of "
+          f"B2 mxu and compaction) {walls['CONFIGS[1]']:.1f} ms, CONFIGS[2] "
+          f"(row-major decode_superblock, 12 launches of B2 mxu) "
+          f"{walls['CONFIGS[2]']:.1f} ms (host clock, synchronised); the "
+          f"three give the same frames bitwise, and the same as phase 7's "
+          f"exact FIR; all {n_frames} payloads "
+          f"equal the encoded ones ({n} per stream), no CRC reject",
+          flush=True)
+    # started after the timed calls, so that sending it the input does
+    # not hold the host clock of CONFIGS[0..2]
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    pending = pool.apply_async(plain_path_m, (head, total))
+
+    def against_plain():
+        try:
+            arrays, secs = pending.get(timeout=1000)
+        finally:
+            pool.terminate()
+            pool.join()
+        plain = tuple(torch.from_numpy(a) for a in arrays)
+        err = {kernel: compare(checked[cfg], plain,
+                               f"{cfg} streams 0..{PATH_M_CHECKED - 1} vs "
+                               f"the plain version")
+               for kernel, cfg in (("B1", "CONFIGS[0]"), ("B2", "CONFIGS[1]"))}
+        print(f"[7m path M] CONFIGS[0] (B1 mxu) and CONFIGS[1] (B2 mxu) on "
+              f"streams 0..{PATH_M_CHECKED - 1}, all {total} samples: frames "
+              f"and carry ({len(plain)} leaves) == the plain version's "
+              f"(run on the CPU in {secs:.1f} s), bitwise", flush=True)
+        return err
+
+    return walls, against_plain
+
+
+def phase_path_r(b1_ms):
+    """Path R, the roofline tool (``gnuais_tpu_torch.roofline``): R1 and
+    R2 in every mode against their plain versions at S = 64 (plain on
+    the CPU), bitwise; R1 dpll+hdlc+shift and R2
+    stream+fir+dpll+hdlc+shift at S = 4096 against their plain versions
+    on the card, timed; then the tool's table at 4096 and 16,384
+    streams, beside B1's ns a sample from phase 6.  Returns ({kernel:
+    dict of the kernels line}, launches of R1 and R2 in the table)."""
+    import torch
+    from gnuais_tpu_torch import captures
+    from gnuais_tpu_torch import roofline as R
+    rng = np.random.default_rng(SEED)
+
+    def seeds(s):
+        return torch.from_numpy(rng.integers(1, 2**31 - 1, s, dtype=np.int32))
+
+    def same(a, b, what):
+        fa = [t for t in leaves(a) if t is not None]
+        fb = [t for t in leaves(b) if t is not None]
+        compare(tuple(t.cpu() for t in fa), tuple(t.cpu() for t in fb), what)
+
+    sd = seeds(64)
+    for mode in R.CHAIN_MODES:
+        same(R.chain(sd.cuda(), 4096, mode), R.chain(sd, 4096, mode),
+             f"R1 {mode} S=64")
+    xs = torch.from_numpy(captures.mixed(64, 4096, seed=63).T.copy())
+    dummy = torch.arange(R.N_DUMMY * 64, dtype=torch.int32).reshape(-1, 64)
+    for mode in R.STREAM_MODES:
+        same(R.stream(xs.cuda(), mode, 2, dummy.cuda()),
+             R.stream(xs, mode, 2, dummy), f"R2 {mode} S=64")
+    print(f"[14 path R] S=64: R1 in {len(R.CHAIN_MODES)} modes (4096 steps) "
+          f"and R2 in {len(R.STREAM_MODES)} modes (4096 steps, 2 passes, on "
+          f"frames, minimal frames, rejects and noise) bitwise equal to their "
+          f"plain versions", flush=True)
+    line = {}
+    s, steps = FLEET_STREAMS, 4096
+    sd = seeds(s).cuda()
+    m1 = "dpll+hdlc+shift"
+    ms, k = device_ms(lambda: R.chain(sd, steps, m1))
+    plain_ms, p = host_ms(lambda: R.chain_reference(sd, steps, m1))
+    same(k, p, f"R1 {m1} S={s}")
+    b_ms, b_by = R.bound_ms(m1, s, steps)
+    line["R1"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by)
+    m2 = "stream+fir+dpll+hdlc+shift"
+    xr = R.build_input(sd, steps)
+    ms, k = device_ms(lambda: R.stream(xr, m2, 2))
+    plain_ms, p = host_ms(lambda: R.stream_reference(xr, m2, 2))
+    same(k, p, f"R2 {m2} S={s}")
+    b_ms, b_by = R.bound_ms(m2, s, steps, 2)
+    line["R2"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by)
+    print(f"[14 path R] S={s}, {steps} steps: R1 {m1} {line['R1']['ms']:.3f} "
+          f"ms (plain {line['R1']['plain_ms']:.1f} ms), R2 {m2} x 2 passes "
+          f"{line['R2']['ms']:.3f} ms (plain {line['R2']['plain_ms']:.1f} ms), "
+          f"bitwise equal", flush=True)
+    R.chain.launches = R.stream.launches = 0
+    for streams in (FLEET_STREAMS, 4 * FLEET_STREAMS):
+        rows = R.table(streams, ROOFLINE_STEPS, ROOFLINE_ITERS)
+        print(f"[14 path R] roofline table at {streams} streams "
+              f"(python -m gnuais_tpu_torch.roofline; median of "
+              f"{ROOFLINE_ITERS}, launch floor {rows[0]['floor_ms']:.4f} ms):",
+              flush=True)
+        for r in rows:
+            print(R.format_row(r), flush=True)
+    launches = {"R1": R.chain.launches, "R2": R.stream.launches}
+    check(min(launches.values()) > 0, f"roofline launches {launches}")
+    print(f"[14 path R] beside them B1 (phase 6, S={FLEET_STREAMS}, "
+          f"T={FLEET_BLOCK}): "
+          + ", ".join(f"{m} {ms * 1e6 / FLEET_BLOCK:.1f} ns a sample a stream"
+                      for m, ms in b1_ms.items()), flush=True)
+    return line, launches
 
 
 def timed(label: str, fn, *args):
@@ -892,6 +1293,7 @@ def main() -> int:
     err3, err4 = timed("3 parity B3/B4", phase_parity_front)
     err2f, err1f, err3f, err4f = timed("3 parity fixture",
                                        phase_parity_fixture)
+    err2m, err1m = timed("3 parity mxu", phase_parity_mxu)
 
     # the main path: BatchPipeline and the command line, kernel B2
     fused.pipeline_fused.launches = 0
@@ -908,8 +1310,21 @@ def main() -> int:
                  "vpu")
     full_lobe = timed("6 full block lobe", phase_full_block, blocks[0],
                       carry0, None, "lobe")
-    launches1, _ = timed("7 flagship", phase_flagship)
-    lobe_launches = timed("8 lobe paths", phase_lobe_paths, blocks, expected)
+    full_mxu = timed("6 full block mxu", phase_full_mxu, blocks[0], carry0,
+                     full["B1"]["out"])
+    launches1, _, flagship_frames = timed("7 flagship", phase_flagship)
+    lobe_launches = timed("8 lobe paths", phase_fir_paths, blocks, expected,
+                          "lobe", "8 lobe paths")
+    # Path M: the bench's mxu configurations and the mxu BatchPipeline
+    fused.pipeline_fused.launches = fused.pipeline_fused_compact.launches = 0
+    _, path_m_plain = timed("7m path M", phase_path_m, flagship_frames)
+    timed("8m mxu paths", phase_fir_paths, blocks, expected, "mxu",
+          "8m mxu paths")
+    mxu_launches = {"B2": fused.pipeline_fused.launches,
+                    "B1": fused.pipeline_fused_compact.launches}
+    print(f"[8m mxu paths] launches on Path M and the mxu BatchPipeline: "
+          f"B1 mxu {mxu_launches['B1']}, B2 mxu {mxu_launches['B2']}",
+          flush=True)
 
     fused.frontend_fused.launches = 0
     timed("9 path S", phase_path_s, blocks, expected)
@@ -926,6 +1341,13 @@ def main() -> int:
     check(launches4 > 0, f"kernel B4 launched {launches4} times on path F")
     print(f"[12 path F] kernel B4 launches on path F: {launches4}",
           flush=True)
+
+    timed("13 probe", phase_probe, blocks[0])
+    roof, roof_launches = timed(
+        "14 path R", phase_path_r,
+        {"B1 vpu": full["B1"]["pretiled_ms"],
+         "B1 mxu": full_mxu["B1"]["pretiled_ms"]})
+    err_m = timed("7m path M against plain", path_m_plain)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "gnuais_tpu")
@@ -950,6 +1372,16 @@ def main() -> int:
          front3, max(err3, err3f)),
         ("dpll", "dpll.cu", "gnuais_tpu/ops/fused.py:129", launches4, front4,
          max(err4, err4f)),
+        ("pipeline_fused_mxu", "pipeline_fused.cu",
+         "gnuais_tpu/ops/fused.py:1031", mxu_launches["B2"], full_mxu["B2"],
+         max(err2m, err_m["B2"])),
+        ("pipeline_compact_mxu", "pipeline_compact.cu",
+         "gnuais_tpu/ops/fused.py:1261", mxu_launches["B1"], full_mxu["B1"],
+         max(err1m, err_m["B1"])),
+        ("roofline_chain", "roofline.cu", "tools/roofline.py:52",
+         roof_launches["R1"], roof["R1"], 0.0),
+        ("roofline_stream", "roofline.cu", "tools/roofline.py:148",
+         roof_launches["R2"], roof["R2"], 0.0),
     ]
     kernels = []
     for kname, source, replaces, launches, m, err in rows:

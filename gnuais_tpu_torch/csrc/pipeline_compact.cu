@@ -5,7 +5,8 @@
 // each completed frame is written at the stream's running count in F
 // dense slots (slots at index >= F are not written; count_raw keeps
 // counting past F), so no candidate buffer exists.  The FIR is the
-// exact one ("vpu") or the main-lobe one ("lobe").  The per-stream body,
+// exact one ("vpu"), the main-lobe one ("lobe") or the tensor-core
+// one ("mxu", fir_mxu.cuh).  The per-stream body,
 // what bounds it and its design are in pipeline_kernel.cuh; at 4096
 // streams the grid is 32 blocks of 128 threads, which fills about 32 of
 // the 132 SMs with one warp group each: accepted for this version.
@@ -13,7 +14,8 @@
 #include "pipeline_kernel.cuh"
 
 // Launches the kernel on `stream` and returns cudaGetLastError(), so a
-// refused launch is reported to the caller.  fir_mode: 0 exact, 1 lobe.
+// refused launch is reported to the caller.  fir_mode: 0 exact, 1 lobe,
+// 2 mxu.
 extern "C" int gnuais_pipeline_compact(
     const void* x, const void* hist, const void* dpll_in, const void* hdlc_in,
     const void* reg_in, void* count_raw, void* words, void* fields,

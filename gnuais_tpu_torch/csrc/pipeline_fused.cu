@@ -5,8 +5,9 @@
 // completed frame lands in the candidate slots of its 64-slot HDLC
 // chunk, K = 2 * ceil(T / 256) slots per stream (the TPU kernel's
 // per-chunk mini buffers, MINI_SLOTS = 2), with cand_valid set, for
-// demod.compact_candidates to compact.  The FIR is the exact one ("vpu")
-// or the main-lobe one ("lobe").  The per-stream body, what bounds it
+// demod.compact_candidates to compact.  The FIR is the exact one ("vpu"),
+// the main-lobe one ("lobe") or the tensor-core one ("mxu",
+// fir_mxu.cuh).  The per-stream body, what bounds it
 // and its design are in pipeline_kernel.cuh.  Candidates are rare (tens
 // per stream against K = 384 slots at T = 49,152), so each field is
 // written straight to global memory; the wrapper zero-fills the outputs
@@ -15,7 +16,8 @@
 #include "pipeline_kernel.cuh"
 
 // Launches the kernel on `stream` and returns cudaGetLastError(), so a
-// refused launch is reported to the caller.  fir_mode: 0 exact, 1 lobe.
+// refused launch is reported to the caller.  fir_mode: 0 exact, 1 lobe,
+// 2 mxu.
 extern "C" int gnuais_pipeline_fused(
     const void* x, const void* hist, const void* dpll_in, const void* hdlc_in,
     const void* reg_in, void* cand_valid, void* words, void* fields,

@@ -2,7 +2,7 @@
 // HDLC deframer with its 15x32-bit register.
 //
 // Shared between the CUDA kernels (pipeline_kernel.cuh, frontend.cu,
-// dpll.cu) and a later CPU build, so every function is __host__
+// dpll.cu, roofline.cu) and a later CPU build, so every function is __host__
 // __device__ and the state lives in plain structs.  Bit-exact with the
 // exact chain of gnuais_tpu (ops/fir.fir_exact, ops/demod.dpll_scan /
 // group_reduce_bits / hdlc_scan): the FIR rounds every product and every
@@ -100,10 +100,9 @@ struct DpllRegs {
   int32_t pll, prev, lastbit;
 };
 
-// One sample through the slicer and the DPLL.  Returns true on a bit
-// emission and sets *bit to the NRZI-decoded bit.
-GNUAIS_HD bool dpll_step(DpllRegs& d, float f, int32_t* bit) {
-  const int32_t curr = f > 0.0f ? 1 : 0;
+// One sliced sample (curr: 1 above zero, else 0) through the DPLL.
+// Returns true on a bit emission and sets *bit to the NRZI-decoded bit.
+GNUAIS_HD bool dpll_step_sliced(DpllRegs& d, int32_t curr, int32_t* bit) {
   const int32_t trans = curr ^ d.prev;
   const int32_t nudge = d.pll < kPllCenter ? kPllNudge : -kPllNudge;
   const int32_t adv = d.pll + trans * nudge + kPllInc;   // in [0, 2^17)
@@ -113,6 +112,11 @@ GNUAIS_HD bool dpll_step(DpllRegs& d, float f, int32_t* bit) {
   if (emit) d.lastbit = curr;
   d.prev = curr;
   return emit;
+}
+
+// One filtered sample through the slicer and the DPLL.
+GNUAIS_HD bool dpll_step(DpllRegs& d, float f, int32_t* bit) {
+  return dpll_step_sliced(d, f > 0.0f ? 1 : 0, bit);
 }
 
 struct HdlcRegs {
@@ -138,7 +142,10 @@ struct SlotEvent {
 
 // One valid bit slot through the deframer (the reference's per-bit
 // switch, protodec.c:993-1121, as ops/demod.hdlc_scan derives it).
-// b is the slot's bit, spos its absolute sample index.
+// b is the slot's bit, spos its absolute sample index.  kAppend false
+// leaves the register out (the roofline tool's "dpll+hdlc" mode); the
+// state update never reads it.
+template <bool kAppend = true>
 GNUAIS_HD SlotEvent hdlc_step(HdlcRegs& h, int32_t b, int32_t spos) {
   SlotEvent ev{false, false, 0, 0};
   const bool b1 = b == 1;
@@ -152,7 +159,7 @@ GNUAIS_HD SlotEvent hdlc_step(HdlcRegs& h, int32_t b, int32_t spos) {
       } else {
         const int32_t ae_new = (b1 && h.last == 1) ? h.ae + 1 : 0;
         const bool set_stuff = ae_new == 4;
-        reg_append(h.reg, static_cast<uint32_t>(b));
+        if constexpr (kAppend) reg_append(h.reg, static_cast<uint32_t>(b));
         if (h.bp + 1 >= kMaxFrameDataBits) {
           h.state = kStSkurr;
           h.ap = h.ns = h.ae = h.bs = h.bp = 0;

@@ -34,6 +34,9 @@ _ENTRIES = {
     "gnuais_pipeline_fused": [_P] * 13 + [_I] * 8 + [_P],
     "gnuais_frontend": [_P] * 5 + [_I] * 3 + [_P],
     "gnuais_dpll": [_P] * 4 + [_I] * 3 + [_P],
+    "gnuais_fir_probe": [_P] * 3 + [_I] * 2 + [_P],
+    "gnuais_roofline_chain": [_P] * 4 + [_I] * 3 + [_P],
+    "gnuais_roofline_stream": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,6 @@
 """Batched FIR band filter (counterpart of ``gnuais_tpu/ops/fir.py``).
 
-Three forms, all with the one-sample delay (out[n] covers
+Four forms, all with the one-sample delay (out[n] covers
 x[n-36 .. n-1]) and a carried [S, 36] history:
 
 - ``fir_exact``: 36 explicit float32 multiplies and adds in the
@@ -11,6 +11,10 @@ x[n-36 .. n-1]) and a carried [S, 36] history:
 - ``fir_lobe``: the main-lobe FIR of the fused kernels' ``lobe`` mode,
   taps ``LOBE_LO..LOBE_HI`` only, each symmetric pair of samples added
   before its one multiply; a packet-parity mode, not the exact rounding.
+- ``fir_mxu``: the fused kernels' ``mxu`` mode, the block cut into
+  chunks of ``MXU_UNROLL`` samples and each chunk filtered by one
+  product of the banded taps matrix (``band_matrix``) with its window;
+  a packet-parity mode, not the exact rounding.
 - ``fir_conv``: a convolution (``conv1d``), the JAX package's
   ``exact_fir=False`` throughput form; its summation order is the
   library's, so it is not bit-exact either.
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..constants import FIR_LEN, FIR_TAPS
@@ -27,6 +32,11 @@ from ..constants import FIR_LEN, FIR_TAPS
 # The main lobe of the Gaussian taps (gnuais_tpu/ops/fused.py LOBE_LO,
 # LOBE_HI): outside it every tap is below 1.3e-13.
 LOBE_LO, LOBE_HI = 10, 25
+
+# Samples per chunk of the mxu FIR: the JAX package's default
+# ``kernel_unroll``.  The chunking changes only the rounding, so the
+# port fixes it (the kernel's tiles are cut for it).
+MXU_UNROLL = 32
 
 
 def init_history(n_streams: int, device: torch.device | str) -> torch.Tensor:
@@ -78,6 +88,47 @@ def fir_lobe(samples: torch.Tensor, history: torch.Tensor,
         term = (x[:, i:i + t] + x[:, j:j + t]) * taps[i]
         out = term if out is None else out + term
     return out, new_history
+
+
+def band_matrix(unroll: int) -> torch.Tensor:
+    """The banded taps matrix A [unroll, FIR_LEN + unroll] float32 with
+    A[k, k + i] = taps[i] (gnuais_tpu/ops/fused.py ``_fir_band_matrix``),
+    so that (A @ win)[k] filters sample k of a window ``win`` of
+    FIR_LEN history and ``unroll`` new samples."""
+    a = np.zeros((unroll, FIR_LEN + unroll), dtype=np.float32)
+    taps = np.asarray(FIR_TAPS, dtype=np.float32)
+    for k in range(unroll):
+        a[k, k:k + FIR_LEN] = taps
+    return torch.from_numpy(a)
+
+
+def fir_mxu(samples: torch.Tensor, history: torch.Tensor,
+            n_valid: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the kernels' ``mxu`` FIR: [history | samples]
+    cut into chunks of MXU_UNROLL samples aligned to sample 0 of the
+    block (the last one zero-padded), each chunk's outputs the float32
+    product of ``band_matrix(MXU_UNROLL)`` with the FIR_LEN + MXU_UNROLL
+    inputs from its start, as the TPU kernel's body does.  Same
+    arguments and returns as ``fir_exact``; not the exact chain's
+    rounding (the sum runs in the matrix product's order).
+
+    On the card TF32 is off for the product and the caller's setting is
+    restored after it."""
+    x, new_history = _window(samples, history, n_valid)
+    s, t = samples.shape
+    u = MXU_UNROLL
+    n_chunks = -(-t // u)
+    x = torch.nn.functional.pad(x, (0, n_chunks * u - t))
+    win = x.unfold(1, FIR_LEN + u, u)                  # [S, chunks, 36 + u]
+    a = band_matrix(u).to(samples.device)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = torch.matmul(win, a.t())                 # [S, chunks, u]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return out.reshape(s, n_chunks * u)[:, :t].contiguous(), new_history
 
 
 def fir_conv(samples: torch.Tensor, history: torch.Tensor,

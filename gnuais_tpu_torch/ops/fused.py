@@ -11,17 +11,23 @@
 - ``dpll_fused`` (B4, ``csrc/dpll.cu``): the DPLL alone over filtered
   samples.
 
-B1 and B2 are one kernel body (``csrc/pipeline_kernel.cuh``) with two
-FIR modes: ``vpu`` (the exact FIR) and ``lobe`` (the main-lobe FIR,
-``fir.fir_lobe``); the JAX package's ``mxu`` mode is not ported.  Both
-take a time-major ``[T, S]`` input as it comes (``pretiled_streams``),
-the layout ``tile_superblock`` makes, or an ``[S, T]`` block that they
-transpose first.
+B1 and B2 are one kernel body (``csrc/pipeline_kernel.cuh``) with three
+FIR modes: ``vpu`` (the exact FIR), ``lobe`` (the main-lobe FIR,
+``fir.fir_lobe``) and ``mxu`` (a banded matrix product per 32-sample
+chunk on the tensor cores, ``csrc/fir_mxu.cuh``; plain version
+``fir.fir_mxu``).  Both take a time-major ``[T, S]`` input as it comes
+(``pretiled_streams``), the layout ``tile_superblock`` makes, or an
+``[S, T]`` block that they transpose first.  ``fir_mxu_probe``
+(``csrc/fir_probe.cu``) runs the ``mxu`` product alone, so that the card
+can hold its filtered values against ``fir.fir_mxu``.
 
 Each wrapper launches its kernel for a CUDA tensor, adding one to its
 ``launches`` counter, and runs its plain PyTorch version (``*_reference``,
 composed from ``fir`` and ``demod``) for a CPU tensor.  Kernel and plain
-version return the same tuple bit for bit.
+version return the same tuple bit for bit, but for the ``mxu`` mode,
+whose tensor-core sums run in another order than the plain product: it
+is held to packet parity (the same frames and carry on captures), its
+filtered values to ``MXU_BOUND``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,20 @@ from .fir import LOBE_HI, LOBE_LO
 _I32 = torch.int32
 
 # the kernels' fir_mode argument
-FIR_MODES = {"vpu": 0, "lobe": 1}
+FIR_MODES = {"vpu": 0, "lobe": 1, "mxu": 2}
+
+# The mxu FIR's error bound against the exact FIR, per output:
+# |mxu - exact| <= MXU_BOUND[0] * sum_i |taps[i] * x[i]| + MXU_BOUND[1].
+# The kernel splits each operand into two TF32 parts (3xTF32): every
+# int16 sample is exact (|x - big| <= 16 is a TF32 value), each tap is
+# kept to ~22 bits and the dropped small*small term is below 2^-22 of
+# its product; the tensor cores add up to ~3 x 36 terms in float32.
+# The exact FIR rounds 36 products and 35 sums (36 * 2^-24 relative).
+# Both together stay below 8 * 2^-20 = 2^-17.  The absolute term covers
+# what TF32 cannot hold at all: taps 2 and 33 are subnormal and round to
+# 0, as do the small parts of taps 3 and 32; against int16 samples each
+# of those products is below 2^-120.
+MXU_BOUND = (2.0 ** -17, 2.0 ** -100)
 
 _TAPS_F32 = np.asarray(C.FIR_TAPS, dtype=np.float32)
 # outside the main lobe the taps are below 1.3e-13: with int16 inputs
@@ -53,13 +72,11 @@ assert all(_TAPS_F32[i] == _TAPS_F32[C.FIR_LEN - 1 - i]
 
 
 def _fir_fn(fir_mode: str):
-    """The plain FIR of a kernel FIR mode; raises for the modes that
-    are not ported."""
-    if fir_mode == "mxu":
-        raise NotImplementedError("fir_mode='mxu' is not ported")
+    """The plain FIR of a kernel FIR mode; raises for an unknown one."""
     if fir_mode not in FIR_MODES:
         raise ValueError(f"unknown fir_mode {fir_mode!r}")
-    return fir.fir_lobe if fir_mode == "lobe" else fir.fir_exact
+    return {"vpu": fir.fir_exact, "lobe": fir.fir_lobe,
+            "mxu": fir.fir_mxu}[fir_mode]
 
 
 def n_candidates(t: int) -> int:
@@ -124,8 +141,9 @@ def pipeline_fused_reference(
         lost2_hi: Optional[int] = None, assume_full: bool = False,
         pretiled_streams: Optional[int] = None):
     """The plain PyTorch version of ``pipeline_fused``: the chain of
-    ``fir_mode`` (``fir_exact`` or ``fir_lobe``, ``dpll_scan``,
-    ``group_reduce_bits``) and ``demod.hdlc_scan_candidates``.  Same
+    ``fir_mode`` (``fir_exact``, ``fir_lobe`` or ``fir_mxu``,
+    ``dpll_scan``, ``group_reduce_bits``) and
+    ``demod.hdlc_scan_candidates``.  Same
     arguments and returns as ``pipeline_fused``."""
     rows = _rows(samples, n_valid, fir_mode, assume_full, pretiled_streams)
     gbits, gvalid, gpos, new_history, new_dpll = bit_slots(
@@ -266,10 +284,10 @@ def pipeline_fused_compact(samples: torch.Tensor, n_valid: int,
     the same block time-major, [T, S] (``tile_superblock``); n_valid:
     real samples (the rest is padding and freezes the state); history:
     float32 [S, 36]; block_base: absolute index of sample 0; lost2 counts
-    wrong-size stops in [lost2_lo, lost2_hi); fir_mode: "vpu" (exact) or
-    "lobe"; assume_full: the caller promises n_valid == T (checked, and
-    nothing else: unlike the TPU kernel's, these have no variant with
-    the per-sample gates compiled out).
+    wrong-size stops in [lost2_lo, lost2_hi); fir_mode: "vpu" (exact),
+    "lobe" or "mxu"; assume_full: the caller promises n_valid == T
+    (checked, and nothing else: unlike the TPU kernel's, these have no
+    variant with the per-sample gates compiled out).
     Returns (count_raw [S], words [S, F, 15] int32 bit patterns,
     length/start/end [S, F], lost2 [S], over [S], new_history, new_dpll,
     new_hdlc): frames in arrival order with zeroed empty slots, count_raw
@@ -278,7 +296,7 @@ def pipeline_fused_compact(samples: torch.Tensor, n_valid: int,
     A CUDA tensor launches the hand-written kernel and adds one to
     ``pipeline_fused_compact.launches``; a CPU tensor runs the plain
     version.  The JAX function's TPU tiling knobs have no counterpart
-    here; the ``mxu`` FIR mode is not ported."""
+    here (the ``mxu`` chunk is fixed at ``fir.MXU_UNROLL``)."""
     rows = _rows(samples, n_valid, fir_mode, assume_full, pretiled_streams)
     if rows.device.type == "cuda":
         return _launch_pipeline(
@@ -328,6 +346,39 @@ def pipeline_fused(samples: torch.Tensor, n_valid: int,
 
 
 pipeline_fused.launches = 0
+
+
+def fir_mxu_probe(samples: torch.Tensor,
+                  history: torch.Tensor) -> torch.Tensor:
+    """The ``mxu`` FIR of kernels B1 and B2 alone, on the card
+    (``csrc/fir_probe.cu``): the same staging and tensor-core product,
+    its filtered values written out instead of fed to the DPLL.  A test
+    instrument, on no decode path.
+
+    samples: int16 [S, T] on a CUDA device; history: float32 [S, 36].
+    Returns the filtered float32 [S, T] (plain version: ``fir.fir_mxu``;
+    tolerance ``MXU_BOUND`` against ``fir.fir_exact``) and adds one to
+    ``fir_mxu_probe.launches``.  Raises for a tensor that is not on a
+    CUDA device."""
+    if samples.device.type != "cuda":
+        raise ValueError("fir_mxu_probe runs on a CUDA device; its plain "
+                         "version is fir.fir_mxu")
+    return _launch_probe(samples, history)
+
+
+def _launch_probe(samples, history):
+    _check_state(samples, torch.int16, history=history)
+    s, t = samples.shape
+    x = _time_major(samples)
+    hist = history.to(torch.float32).contiguous()
+    out = torch.empty((t, s), dtype=torch.float32, device=samples.device)
+    if s and t:
+        _launch("gnuais_fir_probe", x, hist, out, s, t)
+        fir_mxu_probe.launches += 1
+    return out.t().contiguous()
+
+
+fir_mxu_probe.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -388,10 +439,10 @@ def bit_slots(samples: torch.Tensor, n_valid: int, history: torch.Tensor,
               fast_dpll: bool = False, fir_mode: str = "vpu",
               exact_fir: bool = True):
     """The unfused front end: the FIR (``fir.fir_exact``, ``fir.fir_lobe``
-    for ``fir_mode="lobe"``, ``fir.fir_conv`` when ``exact_fir`` is
-    False), then ``dpll_fused`` (``fast_dpll``) or ``demod.dpll_scan``,
-    then ``demod.group_reduce_bits`` (the bit axis padded to a multiple
-    of 4).  Same returns as ``frontend_fused``."""
+    or ``fir.fir_mxu`` for ``fir_mode`` "lobe" or "mxu", ``fir.fir_conv``
+    when ``exact_fir`` is False), then ``dpll_fused`` (``fast_dpll``) or
+    ``demod.dpll_scan``, then ``demod.group_reduce_bits`` (the bit axis
+    padded to a multiple of 4).  Same returns as ``frontend_fused``."""
     fir_fn = _fir_fn(fir_mode) if exact_fir else fir.fir_conv
     filtered, new_history = fir_fn(samples, history, n_valid=n_valid)
     dpll_fn = dpll_fused if fast_dpll else demod.dpll_scan

@@ -5,7 +5,7 @@
         [--block 49152] [--rounds 3]
 
 The wrappers are B1 (``pipeline_fused_compact``, 32 frame slots) and B2
-(``pipeline_fused``), each with the exact and the lobe FIR, B3
+(``pipeline_fused``), each with the exact, the lobe and the mxu FIR, B3
 (``frontend_fused``) and B4 (``dpll_fused``, on the exact FIR of the
 same block).  The block is ``captures.mixed`` of 32 rows, repeated over
 the streams.  Each wrapper runs once to warm up (and to build the
@@ -45,10 +45,15 @@ def wrappers(n_streams: int, block: int):
         "B1 pipeline_fused_compact lobe": lambda: fused.pipeline_fused_compact(
             x, block, c.history, c.dpll, c.hdlc, frame_slots=32,
             fir_mode="lobe"),
+        "B1 pipeline_fused_compact mxu": lambda: fused.pipeline_fused_compact(
+            x, block, c.history, c.dpll, c.hdlc, frame_slots=32,
+            fir_mode="mxu"),
         "B2 pipeline_fused": lambda: fused.pipeline_fused(
             x, block, c.history, c.dpll, c.hdlc),
         "B2 pipeline_fused lobe": lambda: fused.pipeline_fused(
             x, block, c.history, c.dpll, c.hdlc, fir_mode="lobe"),
+        "B2 pipeline_fused mxu": lambda: fused.pipeline_fused(
+            x, block, c.history, c.dpll, c.hdlc, fir_mode="mxu"),
         "B3 frontend_fused": lambda: fused.frontend_fused(
             x, block, c.history, c.dpll),
         "B4 dpll_fused": lambda: fused.dpll_fused(filtered, block, c.dpll),

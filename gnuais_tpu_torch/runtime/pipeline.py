@@ -127,10 +127,13 @@ def decode_block(samples: torch.Tensor, n_valid: int, carry: PipelineCarry,
     ``demod.compact_candidates`` compacts, or with kernel_compact kernel
     B1 (``pipeline_fused_compact``), which returns dense frame slots;
     device_crc then CRC-checks them on the device and keeps only passing
-    frames (rejects counted in ``frames.crcfail``).  lobe_fir selects
-    the kernels' main-lobe FIR; assume_full promises n_valid == T (a
-    checked promise: the kernels have no variant without the per-sample
-    gates); with_peak False skips the level meter's pass over the block.
+    frames (rejects counted in ``frames.crcfail``).  mxu_fir selects
+    the kernels' tensor-core FIR (a banded product per 32-sample chunk),
+    lobe_fir their main-lobe FIR (mxu_fir first, as in the JAX package);
+    both are held to packet parity, not bitwise.  assume_full promises
+    n_valid == T (a checked promise: the kernels have no variant without
+    the per-sample gates); with_peak False skips the level meter's pass
+    over the block.
     The pretiled input takes the fused branches only and without the
     peak, as in the JAX package, but unlike there it may be a short
     block: its history comes from the time-major rows for any n_valid,
@@ -140,13 +143,12 @@ def decode_block(samples: torch.Tensor, n_valid: int, carry: PipelineCarry,
     exact_fir is False) and ``dpll_fused`` (fast_dpll) or ``dpll_scan``
     (the default), and ``demod.hdlc_scan`` deframes them.  Each kernel
     wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
-    version for a CPU tensor; every branch but the lobe and convolution
-    FIRs gives the exact chain's result bit for bit.
+    version for a CPU tensor; every branch but the mxu, lobe and
+    convolution FIRs gives the exact chain's result bit for bit.
 
-    The JAX function's ``mxu_fir`` is not ported (it raises), nor are
-    its TPU tiling knobs."""
-    if mxu_fir:
-        raise NotImplementedError("mxu_fir: the mxu FIR mode is not ported")
+    The JAX function's TPU tiling knobs are not ported."""
+    if mxu_fir and not fused_pipeline:
+        raise ValueError("mxu_fir requires fused_pipeline")
     if device_crc and not fused_pipeline:
         raise ValueError("device_crc requires fused_pipeline")
     if lobe_fir and not fused_pipeline:
@@ -159,8 +161,8 @@ def decode_block(samples: torch.Tensor, n_valid: int, carry: PipelineCarry,
     if fused_pipeline:
         carry, frames = _fused_step(
             samples, n_valid, carry, frame_slots, block_base,
-            "lobe" if lobe_fir else "vpu", lost2_lo, lost2_hi, assume_full,
-            pretiled_streams, kernel_compact)
+            "mxu" if mxu_fir else "lobe" if lobe_fir else "vpu", lost2_lo,
+            lost2_hi, assume_full, pretiled_streams, kernel_compact)
         s = frames.count.shape[0]
         if device_crc:
             frames = _device_crc_filter(frames, s, frame_slots)
@@ -311,8 +313,8 @@ class BatchPipeline:
             raise ValueError("device_crc requires fused_pipeline")
         if lobe_fir and not fused_pipeline:
             raise ValueError("lobe_fir requires fused_pipeline")
-        if mxu_fir:
-            raise NotImplementedError("mxu_fir: the mxu FIR mode is not ported")
+        if mxu_fir and not fused_pipeline:
+            raise ValueError("mxu_fir requires fused_pipeline")
         self.device = resolve_device(device)
         self.n_streams = n_streams
         self.block_len = block_len
@@ -320,7 +322,7 @@ class BatchPipeline:
         self.flags = dict(fast_dpll=fast_dpll, fused_frontend=fused_frontend,
                           fused_pipeline=fused_pipeline, device_crc=device_crc,
                           exact_fir=exact_fir, lobe_fir=lobe_fir,
-                          **kernel_flags)
+                          mxu_fir=mxu_fir, **kernel_flags)
         self.carry = init_carry(n_streams, self.device)
         self.counters = [StreamCounters() for _ in range(n_streams)]
 

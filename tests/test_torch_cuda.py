@@ -1,8 +1,10 @@
 """The CUDA kernels (B1 ``pipeline_fused_compact`` and B2
-``pipeline_fused``, each with the exact and the lobe FIR, B3
-``frontend_fused``, B4 ``dpll_fused``) against their plain PyTorch
-versions on the card, bitwise, and the paths through them (pretiled
-input included) against the CPU; ``fir_conv`` with TF32 off.  Needs an
+``pipeline_fused``, each with the exact, the lobe and the mxu FIR, B3
+``frontend_fused``, B4 ``dpll_fused``, the mxu probe and the roofline
+kernels R1 and R2) against their plain PyTorch versions on the card,
+bitwise (the mxu FIR's values within ``fused.MXU_BOUND``), and the paths
+through them (pretiled input included) against the CPU; ``fir_conv``
+with TF32 off.  Needs an
 NVIDIA GPU with nvcc (sm_90a): every test here is
 marked ``cuda`` and skips without a device.  Imports no JAX, so it runs
 where JAX is not installed:
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from gnuais_tpu_torch import captures
+from gnuais_tpu_torch import roofline as R
 from gnuais_tpu_torch.constants import FIR_LEN, FIR_TAPS
 from gnuais_tpu_torch.ops import crc, fir, fused
 from gnuais_tpu_torch.runtime.pipeline import (BatchPipeline, PipelineCarry,
@@ -100,6 +103,99 @@ def test_candidates_kernel_matches_plain(cuda, case, fir_mode):
     _assert_same(k2, p2)
     _assert_same(k1, p1)
     _assert_same(fused.compact_slots(k2, fs), k1)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mxu_kernels_match_plain(cuda, case):
+    """B2 and B1 with the mxu FIR (tensor cores, 3xTF32) against their
+    plain versions (cuBLAS float32 with TF32 off) at ragged S: every
+    output and carry leaf.  The sums differ in order only, far below
+    any slicer decision of these captures, so the frames and carry are
+    the same; and B1 mxu against B1 with the exact FIR: the same frames
+    on every row that is not garbage (``captures.mixed`` makes every
+    fourth row noise alone)."""
+    build, s, nv, fs, base, window = CASES[case]
+    x = torch.from_numpy(build(s, T, seed=len(case))).to(cuda)
+    lo, hi = window or (None, None)
+    c = init_carry(s, cuda)
+    kw = dict(block_base=base, fir_mode="mxu", lost2_lo=lo, lost2_hi=hi)
+    args = (x, nv, c.history, c.dpll, c.hdlc)
+    before = (fused.pipeline_fused.launches,
+              fused.pipeline_fused_compact.launches)
+    k2 = fused.pipeline_fused(*args, **kw)
+    k1 = fused.pipeline_fused_compact(*args, frame_slots=fs, **kw)
+    assert (fused.pipeline_fused.launches,
+            fused.pipeline_fused_compact.launches) == tuple(
+                n + 1 for n in before)
+    p2 = fused.pipeline_fused_reference(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_same(k2, p2)
+    _assert_same(k1, fused.compact_slots(p2, fs))
+    kv = fused.pipeline_fused_compact(*args, frame_slots=fs,
+                                      **dict(kw, fir_mode="vpu"))
+    rows = torch.arange(s, device=cuda)
+    rows = rows[rows % 4 != 1] if build is captures.mixed else rows
+    _assert_same([v[rows] for v in k1[:5]], [v[rows] for v in kv[:5]])
+
+
+def test_mxu_chained_blocks_and_short_tail(cuda):
+    """B1 mxu over three chained blocks of T = 1000 (the last chunk of
+    32 padded), the last one 20 samples, each side on its own carry."""
+    s, t = 37, 1000
+    x = captures.mixed(s, 3 * t, seed=18)
+    ck = cp = init_carry(s, cuda)
+    for b, nv in enumerate((t, t, 20)):
+        xb = torch.from_numpy(np.ascontiguousarray(x[:, b * t:(b + 1) * t])).to(cuda)
+        kw = dict(frame_slots=3, block_base=b * t, fir_mode="mxu")
+        k = fused.pipeline_fused_compact(xb, nv, ck.history, ck.dpll, ck.hdlc, **kw)
+        p = fused.pipeline_fused_compact_reference(xb, nv, cp.history, cp.dpll,
+                                                   cp.hdlc, **kw)
+        _assert_same(k, p)
+        ck, cp = PipelineCarry(*k[7:]), PipelineCarry(*p[7:])
+
+
+@pytest.mark.parametrize("s,t", [(1, 4096), (37, 1000), (256, 4096)])
+def test_mxu_probe_matches_plain(cuda, s, t):
+    """The tensor-core FIR alone: within MXU_BOUND of fir_exact and of
+    the plain fir_mxu, from a history of noise."""
+    x = captures.mixed(s, t, seed=s)
+    h = captures.garbage(s, FIR_LEN, seed=t).astype(np.float32)
+    xt, ht = torch.from_numpy(x).to(cuda), torch.from_numpy(h).to(cuda)
+    before = fused.fir_mxu_probe.launches
+    k = fused.fir_mxu_probe(xt, ht).cpu().double()
+    assert fused.fir_mxu_probe.launches == before + 1
+    p = fir.fir_mxu(xt, ht)[0].cpu().double()
+    e = fir.fir_exact(xt, ht)[0].cpu().double()
+    full = np.concatenate([h, x.astype(np.float32)], axis=1).astype(np.float64)
+    taps = np.asarray(FIR_TAPS, np.float32).astype(np.float64)
+    mag = torch.from_numpy(sum(np.abs(full[:, i:i + t] * taps[i])
+                               for i in range(FIR_LEN)))
+    lim = fused.MXU_BOUND[0] * mag + fused.MXU_BOUND[1]
+    assert ((k - e).abs() <= lim).all()
+    assert ((k - p).abs() <= 2 * lim).all()
+
+
+@pytest.mark.parametrize("mode", R.CHAIN_MODES)
+def test_roofline_chain_matches_plain(cuda, mode):
+    seed = torch.from_numpy(np.random.default_rng(3).integers(
+        1, 2**31 - 1, 100, dtype=np.int32))
+    before = R.chain.launches
+    k = R.chain(seed.to(cuda), 2048, mode)
+    assert R.chain.launches == before + 1
+    p = R.chain(seed, 2048, mode)
+    _assert_same([t.cpu() for t in _flat(k)], _flat(p))
+
+
+@pytest.mark.parametrize("mode", R.STREAM_MODES)
+def test_roofline_stream_matches_plain(cuda, mode):
+    x = torch.from_numpy(captures.mixed(100, 2048, seed=4).T.copy())
+    dummy = torch.arange(R.N_DUMMY * 100, dtype=torch.int32).reshape(-1, 100)
+    before = R.stream.launches
+    k = R.stream(x.to(cuda), mode, 2, dummy.to(cuda))
+    assert R.stream.launches == before + 1
+    p = R.stream(x, mode, 2, dummy)
+    _assert_same([t.cpu() for t in _flat(k) if t is not None],
+                 [t for t in _flat(p) if t is not None])
 
 
 def test_kernel_rejects_mismatched_state(cuda):

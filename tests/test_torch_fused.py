@@ -147,9 +147,9 @@ def test_device_crc_filter_matches_jax():
 def test_fused_rejects_what_it_does_not_port():
     c = tpipe.init_carry(2, "cpu")
     x = torch.zeros((2, 1024), dtype=torch.int16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tfused.pipeline_fused_compact(x, 1024, c.history, c.dpll, c.hdlc,
-                                      fir_mode="mxu")
+                                      fir_mode="tpu")
     with pytest.raises(ValueError):
         tfused.pipeline_fused_compact(x[:, :1022], 1022, c.history, c.dpll,
                                       c.hdlc)

@@ -22,6 +22,8 @@ MODULES = [
     "gnuais_tpu_torch.convert",
     "gnuais_tpu_torch.cli",
     "gnuais_tpu_torch.profile_kernels",
+    "gnuais_tpu_torch.roofline",
+    "gnuais_tpu_torch.card",
     "gnuais_tpu_torch.ops.fir",
     "gnuais_tpu_torch.ops.demod",
     "gnuais_tpu_torch.ops.crc",

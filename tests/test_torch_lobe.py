@@ -99,16 +99,10 @@ def test_lobe_decodes_the_same_frames():
     assert out[0].count.sum() > 0
 
 
-def test_mxu_stays_unported():
+def test_lobe_fir_requires_fused_pipeline():
     c = tpipe.init_carry(2, "cpu")
     x = torch.zeros((2, 1024), dtype=torch.int16)
-    for fn in (tfused.pipeline_fused, tfused.pipeline_fused_compact):
-        with pytest.raises(NotImplementedError):
-            fn(x, 1024, c.history, c.dpll, c.hdlc, fir_mode="mxu")
-    with pytest.raises(NotImplementedError):
-        tpipe.decode_block(x, 1024, c, fused_pipeline=True, mxu_fir=True)
-    with pytest.raises(NotImplementedError):
-        tpipe.BatchPipeline(2, block_len=1024, fused_pipeline=True,
-                            mxu_fir=True, device="cpu")
     with pytest.raises(ValueError):
         tpipe.decode_block(x, 1024, c, lobe_fir=True)
+    with pytest.raises(ValueError):
+        tpipe.BatchPipeline(2, block_len=1024, lobe_fir=True, device="cpu")
