@@ -29,7 +29,11 @@ raises and exits non-zero:
    versions at the small shapes above, every leaf, and B1 mxu against
    B1 with the exact FIR: the same frames and carry on every capture
    row; on rows of noise alone the same CRC-passing frames, the rows
-   whose carry differs counted.
+   whose carry differs counted.  Then the edges of the producer and
+   consumer ring, B2 and B1 in every FIR mode from row-major and from
+   time-major input against one plain run: S = 1, 31, 33, 37, 4096; T =
+   1000, 1024, 8192; n_valid 0, 1, 20, 31, 32, 33, T-333 and T over
+   chained blocks.
 4. Main path at full size: BatchPipeline(4096 streams, 49,152-sample
    blocks, 32 frame slots, fused_pipeline, CRC on the device), which runs
    kernel B2 and the candidate compaction, over three chained blocks;
@@ -44,7 +48,8 @@ raises and exits non-zero:
    every output and carry leaf, B2's candidates compacted equal
    to B1's dense slots, B2's carry equal to the main path's; times of
    each wrapper, of the decode_block step and of the plain versions, and
-   each kernel's bound.
+   each kernel's bound; B2 also from a row-major view of the block with
+   an odd pitch (no 16-byte copies), equal to the contiguous block's.
 7. Flagship: bench.py's bit-exact flagship configuration at full width,
    12 copies of a 4-payload fleet block tiled time-major into one
    [589,824, 4096] int16 input and decoded by one pretiled decode_block
@@ -78,8 +83,10 @@ raises and exits non-zero:
 12. Path F: ``gnuais-tpu-torch -l tests/fixtures/standard_capture.raw
    --backend fast`` (kernel B4) reproduces the stdout byte for byte
    with counters (49, 0, 0).
-13. Probe: the mxu FIR alone (fir_mxu_probe) on the first fleet block,
-   within fused.MXU_BOUND of the exact FIR; its error, time and bound.
+13. Probe: the mxu producer stage of B1/B2 alone (fir_mxu_probe: the
+   same producer warps and ring, a consumer that writes the values out)
+   on the first fleet block, within fused.MXU_BOUND of the exact FIR;
+   its error, time and bound.
 14. Path R: the roofline tool's kernels R1 and R2 in every mode against
    their plain versions at S = 64, bitwise, and at S = 4096 (timed);
    then the tool's table (python -m gnuais_tpu_torch.roofline) at 4096
@@ -224,6 +231,9 @@ def phase_build():
           f".cu files in {time.time() - t0:.1f} s", flush=True)
     for line in info:
         print("  " + line.strip(), flush=True)
+    from gnuais_tpu_torch.ops import fused
+    for mode in fused.FIR_MODES:
+        print(f"  B1/B2 {mode}: {fused.pipeline_shape(mode)}", flush=True)
 
 
 def run_both(x, nv, carry, fs, base=0, window=(None, None),
@@ -297,6 +307,59 @@ def phase_parity():
         print(f"[3 parity] chained block {b}: B2 and B1 bitwise equal to "
               f"plain, frames {int(k1[0].sum())}", flush=True)
     return err2, err1
+
+
+# (S, T, n_valid of each chained block) of the ring's edges
+RING_EDGES = [(1, 1000, (1000, 0, 1)), (31, 1024, (20, 31, 1024)),
+              (33, 8192, (8192 - 333,)), (37, 1000, (33, 1, 1000 - 333)),
+              (4096, 1024, (1024, 32, 1024 - 333))]
+
+
+def phase_parity_edges():
+    """B2 and B1 around the ring's edges (``RING_EDGES``), in every FIR
+    mode, from row-major and time-major input, against their plain
+    versions, bitwise on every leaf, chained each through its own carry
+    (the row-major kernels' and the plain run's).  Returns {fir_mode:
+    (B2's max abs error, B1's)}."""
+    import torch
+    from gnuais_tpu_torch import captures
+    from gnuais_tpu_torch.ops import fused
+    from gnuais_tpu_torch.runtime.pipeline import PipelineCarry, init_carry
+    errs = {}
+    for mode in fused.FIR_MODES:
+        e2 = e1 = 0.0
+        for s, t, nvs in RING_EDGES:
+            x = captures.mixed(s, len(nvs) * t, seed=s + t)
+            ck = ct = cp = init_carry(s, "cuda")
+            for b, nv in enumerate(nvs):
+                xb = torch.from_numpy(np.ascontiguousarray(
+                    x[:, b * t:(b + 1) * t])).cuda()
+                kw = dict(block_base=b * t + 5, fir_mode=mode)
+                what = f"{mode} S={s} T={t} block {b} n_valid={nv}"
+                p2 = fused.pipeline_fused_reference(
+                    xb, nv, cp.history, cp.dpll, cp.hdlc, **kw)
+                p1 = fused.compact_slots(p2, 5)
+                for layout, xin, c, tiled in (
+                        ("row-major", xb, ck, {}),
+                        ("time-major", xb.t().contiguous(), ct,
+                         dict(pretiled_streams=s))):
+                    k2 = fused.pipeline_fused(xin, nv, c.history, c.dpll,
+                                              c.hdlc, **kw, **tiled)
+                    k1 = fused.pipeline_fused_compact(
+                        xin, nv, c.history, c.dpll, c.hdlc, frame_slots=5,
+                        **kw, **tiled)
+                    e2 = max(e2, compare(k2, p2, f"B2 {what} {layout}"))
+                    e1 = max(e1, compare(k1, p1, f"B1 {what} {layout}"))
+                    if tiled:
+                        ct = PipelineCarry(*k2[7:])
+                    else:
+                        ck = PipelineCarry(*k2[7:])
+                cp = PipelineCarry(*p2[7:])
+        errs[mode] = (e2, e1)
+        print(f"[3 parity edges] {mode}: B2 and B1, row-major and "
+              f"time-major, bitwise equal to plain at (S, T, n_valid) "
+              f"{RING_EDGES}", flush=True)
+    return errs
 
 
 def phase_parity_lobe():
@@ -518,14 +581,24 @@ def phase_full_block(x0, carry0, carry1, fir_mode):
                compare(t1, p1, f"{what}, pretiled B1 vs plain"))
     compare(fused.compact_slots(k2, FLEET_SLOTS), k1,
             f"{what}, B2's candidates compacted vs B1")
+    # a row-major view with an odd pitch: the kernel copies sample by
+    # sample where it cannot copy 16 bytes at a time
+    wide = torch.zeros((FLEET_STREAMS, FLEET_BLOCK + 5), dtype=torch.int16,
+                       device="cuda")
+    wide[:, 3:3 + FLEET_BLOCK] = x
+    compare(fused.pipeline_fused(wide[:, 3:3 + FLEET_BLOCK], *args[1:],
+                                 fir_mode=fir_mode), k2,
+            f"{what}, B2 from an odd-pitch view vs the contiguous block")
+    del wide
     if carry1 is not None:
         compare(k2[7:], tuple(carry1), f"{what}, B2 carry vs main path carry")
     print(f"[6 full block] {what}: B2 == plain on all {len(leaves(k2))} output "
           f"and carry leaves ({int(k2[0].sum())} candidates in "
           f"{k2[0].shape[1]} slots per stream), B1 == plain on all "
           f"{len(leaves(k1))} ({int(k1[0].sum())} frames), both also from "
-          f"the pretiled [{FLEET_BLOCK}, {FLEET_STREAMS}] block, B2's "
-          f"candidates compacted == B1's dense slots"
+          f"the pretiled [{FLEET_BLOCK}, {FLEET_STREAMS}] block, B2 also "
+          f"from an odd-pitch view, B2's candidates compacted == B1's "
+          f"dense slots"
           + (", B2's carry == the main path's" if carry1 is not None else "")
           + ", bitwise", flush=True)
     flops = FIR_FLOPS[fir_mode] * FLEET_STREAMS * FLEET_BLOCK
@@ -1294,6 +1367,10 @@ def main() -> int:
     err2f, err1f, err3f, err4f = timed("3 parity fixture",
                                        phase_parity_fixture)
     err2m, err1m = timed("3 parity mxu", phase_parity_mxu)
+    edges = timed("3 parity edges", phase_parity_edges)
+    err2, err1 = max(err2, edges["vpu"][0]), max(err1, edges["vpu"][1])
+    err2l, err1l = max(err2l, edges["lobe"][0]), max(err1l, edges["lobe"][1])
+    err2m, err1m = max(err2m, edges["mxu"][0]), max(err1m, edges["mxu"][1])
 
     # the main path: BatchPipeline and the command line, kernel B2
     fused.pipeline_fused.launches = 0

@@ -5,28 +5,24 @@
 // `_pipeline_kernel` in fir_mode "mxu" (fused.py:735-747, 767-768,
 // 902-903): per unroll chunk, the [U, 36 + U] banded taps matrix A
 // (A[k, k + i] = taps[i], `_fir_band_matrix`) times the window of 36
-// history and U new samples, on the MXU.  Used by kernels B1 and B2
-// (pipeline_kernel.cuh, Fir::kMxu) and by the probe fir_probe.cu, both
-// through the chunk loop mxu_chunks.
+// history and U new samples, on the MXU.  Here it is the work of a
+// producer warp of the ring (pipeline_ring.cuh) in kernels B1 and B2
+// (pipeline_kernel.cuh, Fir::kMxu) and in the probe fir_probe.cu: the
+// warp takes its chunk's raw window out of its copy buffer, stages it
+// (mxu_window) and writes the product straight into the chunk's ring
+// stage (mxu_product), while the consumer warp runs the chain.
 //
 // What bounds it: not the tensor cores' rate (168 multiply-adds a
-// sample in 3xTF32) nor the bytes, but latency: with 32 warps of 4 per
-// block at 4096 streams each scheduler holds one warp, and a chunk's
-// loads, window move, operand splits and MMA chain follow one another.
-// On an H100 80GB HBM3 (700 W) the staging and product alone take
-// ~8.4 us a warp and chunk (fir_probe.cu: 12.9 ms at 4096 x 49,152),
-// most of the mxu kernels' 13.4 ms; the chain after them is not the
-// limit here.  What the mode changes against the vpu FIR is that a
-// stream's 32 samples are loaded together, not one per chain step.
+// sample in 3xTF32) nor the bytes, but latency: a chunk's window move,
+// operand splits and the 21-deep MMA chain of each output tile follow
+// one another, so several producer warps work on different chunks.
 //
-// Design, per warp and chunk:
+// Design, per producer warp and chunk:
 // - The window is staged in shared memory time-major, win[row][stream]
 //   (72 rows: 36 history, 32 samples, 4 zero rows to fill 9 k-tiles of
 //   8; 40 floats a row, 32 streams and a pad): this is the B operand,
 //   K = window row, N = stream.  Each lane writes its own stream's
-//   column: the chunk's samples loaded from the time-major [T, S] input
-//   (a warp's 32 loads at one time step neighbouring), and between
-//   chunks the last 36 rows moved to the front.
+//   column from the raw window (a lane past the last stream: zeros).
 // - A is staged once per block, split into its TF32 parts.
 // - The product runs as WMMA m16n16k8 TF32 tiles with float32
 //   accumulation, in 3xTF32: each operand v is split into
@@ -37,11 +33,9 @@
 //   is a TF32 value) and every tap keeps ~22 bits.  Row tile 0 (outputs
 //   0..15) touches window rows 0..50 only and row tile 1 rows 16..66, so
 //   each skips the two all-zero k-tiles of its band: 7 of 9.
-// - C goes back to shared memory, out[k][stream], and lane s reads its
-//   own stream's 32 filtered values from its column.
+// - C goes to the ring stage, out[sample][stream].
 // The error bound against the exact FIR is MXU_BOUND in ops/fused.py.
-// mma.sync through WMMA is enough at this size; wgmma, TMA and
-// swizzled layouts are later work.
+// mma.sync through WMMA is enough at this size; wgmma is later work.
 
 #pragma once
 
@@ -49,7 +43,7 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include "pipeline_step.cuh"
+#include "pipeline_ring.cuh"
 
 namespace gnuais {
 
@@ -57,27 +51,20 @@ constexpr int kMxuUnroll = 32;                  // U: samples per chunk
 constexpr int kMxuRows = 72;                    // 36 + U window rows, 9 k-tiles
 constexpr int kMxuLd = 40;                      // floats per shared row
 
+// Producer warps a consumer warp has in the mxu mode: a chunk's product
+// takes a warp longer than the consumer's chain over it.
+constexpr int kMxuProducers = 3;
+
 // The band matrix A [U, 72] in its two TF32 parts; one per block.
-struct MxuBand {
+struct alignas(128) MxuBand {
   float big[kMxuUnroll * kMxuRows];
   float small[kMxuUnroll * kMxuRows];
 };
 
-// One warp's window (the B operand) and filtered outputs.
-struct MxuWarp {
-  float win[kMxuRows * kMxuLd];                 // [row][stream]
-  float out[kMxuUnroll * kMxuLd];               // [sample][stream]
+// One producer warp's window (the B operand), [row][stream].
+struct alignas(128) MxuWindow {
+  float win[kMxuRows * kMxuLd];
 };
-
-// Dynamic shared memory of a block of `threads` threads.
-constexpr size_t mxu_shared_bytes(int threads) {
-  return sizeof(MxuBand) + (threads / 32) * sizeof(MxuWarp);
-}
-
-__device__ __forceinline__ unsigned char* mxu_shared() {
-  extern __shared__ __align__(128) unsigned char gnuais_mxu_smem[];
-  return gnuais_mxu_smem;
-}
 
 // Fills the block's band matrix; every thread of the block takes part
 // and the caller synchronises the block after it.
@@ -92,47 +79,28 @@ __device__ __forceinline__ void mxu_band_init(MxuBand& band) {
   }
 }
 
-// Window rows 0..35 from the carried history of this lane's stream
-// (hist: its 36 floats, or nullptr for a lane past the last stream,
-// which takes zeros) and the zero rows 68..71.
-__device__ __forceinline__ void mxu_stage_history(MxuWarp& w, int lane,
-                                                  const float* hist) {
-#pragma unroll
-  for (int i = 0; i < kFirLen; ++i)
-    w.win[i * kMxuLd + lane] = hist != nullptr ? hist[i] : 0.0f;
+// The zero rows 68..71 of the window, once per producer warp.
+__device__ __forceinline__ void mxu_window_init(MxuWindow& w, int lane) {
 #pragma unroll
   for (int r = kFirLen + kMxuUnroll; r < kMxuRows; ++r)
     w.win[r * kMxuLd + lane] = 0.0f;
 }
 
-// The window of the chunk starting at sample t0: for t0 > 0 the last 36
-// rows of the previous window move to rows 0..35, then rows 36..67 take
-// samples t0..t0+31 of stream s from the time-major [T, S] input x
-// (zero past T, and for s < 0, a lane past the last stream).
-__device__ __forceinline__ void mxu_stage_chunk(MxuWarp& w, int lane,
-                                                const int16_t* x, int S,
-                                                int T, int t0, int s) {
-  if (t0 > 0) {
+// Rows 0..67 of the window from this lane's raw column v (v[r]: sample
+// t0 - 40 + r, pipeline_ring.cuh raw_column): row i is sample t0 - 36 + i.
+__device__ __forceinline__ void mxu_window(MxuWindow& w, int lane,
+                                           const float (&v)[kRawLen]) {
 #pragma unroll
-    for (int i = 0; i < kFirLen; ++i)   // rows 32..35 are read before written
-      w.win[i * kMxuLd + lane] = w.win[(i + kMxuUnroll) * kMxuLd + lane];
-  }
-  float v[kMxuUnroll];
-#pragma unroll
-  for (int k = 0; k < kMxuUnroll; ++k) {
-    const int t = t0 + k;
-    v[k] = (s >= 0 && t < T)
-               ? static_cast<float>(__ldg(x + (size_t)t * S + s)) : 0.0f;
-  }
-#pragma unroll
-  for (int k = 0; k < kMxuUnroll; ++k)
-    w.win[(kFirLen + k) * kMxuLd + lane] = v[k];
+  for (int i = 0; i < kFirLen + kMxuUnroll; ++i)
+    w.win[i * kMxuLd + lane] = v[kRawLead - kFirLen + i];
 }
 
-// w.out = A @ w.win over the warp's 32 streams: warp-collective, every
-// lane of the warp calls it after the window is staged and synchronised.
+// out = A @ w.win over the warp's 32 streams, out[sample * ldo + stream]:
+// warp-collective, every lane of the warp calls it after the window is
+// staged and synchronised.
 __device__ __forceinline__ void mxu_product(const MxuBand& band,
-                                            MxuWarp& w) {
+                                            const MxuWindow& w, float* out,
+                                            int ldo) {
   using namespace nvcuda;
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8,
                                wmma::precision::tf32, wmma::row_major>;
@@ -176,32 +144,35 @@ __device__ __forceinline__ void mxu_product(const MxuBand& band,
   for (int m = 0; m < 2; ++m)
 #pragma unroll
     for (int n = 0; n < 2; ++n)
-      wmma::store_matrix_sync(w.out + m * 16 * kMxuLd + n * 16, acc[m][n],
-                              kMxuLd, wmma::mem_row_major);
+      wmma::store_matrix_sync(out + m * 16 * ldo + n * 16, acc[m][n], ldo,
+                              wmma::mem_row_major);
 }
 
-// The chunk loop of one warp over samples 0..nv-1 of the time-major
-// [T, S] input x, nv the same on every lane (the block's band filled and
-// synchronised before): per chunk every lane stages its stream's window,
-// the warp runs the product, and on a live lane consume(t0, f) takes the
-// chunk's filtered values, sample t0 + k at f[k * kMxuLd].  A lane past
-// the last stream (s < 0, hist nullptr) stages zeros, takes part in the
-// product and consumes nothing.  Kernels B1/B2 and the probe share it.
-template <typename Consume>
-__device__ __forceinline__ void mxu_chunks(const MxuBand& band, MxuWarp& w,
-                                           const int16_t* x, int S, int T,
-                                           int nv, int s, const float* hist,
-                                           Consume&& consume) {
+// The block's shared memory in the mxu mode: the ring, the producers'
+// copy buffers, the band and the producers' windows.
+struct MxuShared {
+  RingShared<kMxuProducers> r;
+  MxuBand band;
+  MxuWindow win[kMxuProducers];
+};
+
+// Producer warp p's loop (pipeline_ring.cuh ring_produce) in the mxu
+// mode, the block's band filled and synchronised before: each chunk's
+// window staged from the raw copy, the product written into its stage.
+// hist: this lane's stream's 36 floats, nullptr past the last stream.
+__device__ __forceinline__ void mxu_produce(MxuShared& sh, const RingInput& in,
+                                            int s0, int n_chunks, int p,
+                                            const float* hist) {
   const int lane = threadIdx.x % 32;
-  mxu_stage_history(w, lane, hist);
-  for (int t0 = 0; t0 < nv; t0 += kMxuUnroll) {
-    mxu_stage_chunk(w, lane, x, S, T, t0, s);
-    __syncwarp();
-    mxu_product(band, w);
-    __syncwarp();
-    if (s >= 0) consume(t0, w.out + lane);
-    __syncwarp();   // the next chunk rewrites the window and the outputs
-  }
+  MxuWindow& w = sh.win[p];
+  mxu_window_init(w, lane);
+  ring_produce(sh.r.ring, sh.r.raw[p], in, s0, n_chunks, p, kMxuProducers,
+               [&](int t0) {
+                 float v[kRawLen];
+                 raw_column(sh.r.raw[p], in.row_major, lane, t0, hist, v);
+                 mxu_window(w, lane, v);
+               },
+               [&](float* stage) { mxu_product(sh.band, w, stage, kChunk); });
 }
 
 }  // namespace gnuais

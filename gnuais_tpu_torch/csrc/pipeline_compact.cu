@@ -6,22 +6,23 @@
 // dense slots (slots at index >= F are not written; count_raw keeps
 // counting past F), so no candidate buffer exists.  The FIR is the
 // exact one ("vpu"), the main-lobe one ("lobe") or the tensor-core
-// one ("mxu", fir_mxu.cuh).  The per-stream body,
-// what bounds it and its design are in pipeline_kernel.cuh; at 4096
-// streams the grid is 32 blocks of 128 threads, which fills about 32 of
-// the 132 SMs with one warp group each: accepted for this version.
+// one ("mxu", fir_mxu.cuh).  The kernel body (a consumer warp running
+// the chain of 32 streams, fed by FIR producer warps through a ring in
+// shared memory), what bounds it and its launch shape are in
+// pipeline_kernel.cuh.
 
 #include "pipeline_kernel.cuh"
 
 // Launches the kernel on `stream` and returns cudaGetLastError(), so a
 // refused launch is reported to the caller.  fir_mode: 0 exact, 1 lobe,
-// 2 mxu.
+// 2 mxu; x is time-major [T, pitch] (row_major 0) or row-major
+// [S, pitch] (row_major 1).
 extern "C" int gnuais_pipeline_compact(
     const void* x, const void* hist, const void* dpll_in, const void* hdlc_in,
     const void* reg_in, void* count_raw, void* words, void* fields,
     void* lost2, void* over, void* dpll_out, void* hdlc_out, void* reg_out,
     int S, int T, int n_valid, int block_base, int lost2_lo, int lost2_hi,
-    int F, int fir_mode, void* stream) {
+    int F, int fir_mode, int row_major, int pitch, void* stream) {
   gnuais::PipelineArgs a{
       static_cast<const int16_t*>(x), static_cast<const float*>(hist),
       static_cast<const int32_t*>(dpll_in), static_cast<const int32_t*>(hdlc_in),
@@ -30,6 +31,25 @@ extern "C" int gnuais_pipeline_compact(
       static_cast<int32_t*>(lost2), static_cast<int32_t*>(over),
       static_cast<int32_t*>(dpll_out), static_cast<int32_t*>(hdlc_out),
       static_cast<int32_t*>(reg_out), S, T, n_valid, block_base, lost2_lo,
-      lost2_hi, F};
+      lost2_hi, F, row_major, pitch};
   return gnuais::launch_pipeline<false>(a, fir_mode, stream);
+}
+
+// The launch shape of B1 and B2 in fir_mode (0 exact, 1 lobe, 2 mxu):
+// out[0..3] = producer warps, ring stages, warps a block, dynamic shared
+// memory a block in bytes.  Returns 0, or cudaErrorInvalidValue for an
+// unknown mode.
+extern "C" int gnuais_pipeline_shape(int fir_mode, int* out) {
+  using gnuais::Fir;
+  if (fir_mode < 0 || fir_mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int p[3] = {gnuais::kProducers<Fir::kExact>, gnuais::kProducers<Fir::kLobe>,
+                    gnuais::kProducers<Fir::kMxu>};
+  const size_t smem[3] = {gnuais::pipeline_shared_bytes<Fir::kExact>(),
+                          gnuais::pipeline_shared_bytes<Fir::kLobe>(),
+                          gnuais::pipeline_shared_bytes<Fir::kMxu>()};
+  out[0] = p[fir_mode];
+  out[1] = gnuais::kStages;
+  out[2] = 1 + p[fir_mode];
+  out[3] = static_cast<int>(smem[fir_mode]);
+  return 0;
 }

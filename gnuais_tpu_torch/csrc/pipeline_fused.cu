@@ -7,8 +7,9 @@
 // per-chunk mini buffers, MINI_SLOTS = 2), with cand_valid set, for
 // demod.compact_candidates to compact.  The FIR is the exact one ("vpu"),
 // the main-lobe one ("lobe") or the tensor-core one ("mxu",
-// fir_mxu.cuh).  The per-stream body, what bounds it
-// and its design are in pipeline_kernel.cuh.  Candidates are rare (tens
+// fir_mxu.cuh).  The kernel body (producer and consumer
+// warps around a ring in shared memory), what bounds it and its design
+// are in pipeline_kernel.cuh.  Candidates are rare (tens
 // per stream against K = 384 slots at T = 49,152), so each field is
 // written straight to global memory; the wrapper zero-fills the outputs
 // and a coalesced layout is later work.
@@ -17,13 +18,14 @@
 
 // Launches the kernel on `stream` and returns cudaGetLastError(), so a
 // refused launch is reported to the caller.  fir_mode: 0 exact, 1 lobe,
-// 2 mxu.
+// 2 mxu; x is time-major [T, pitch] (row_major 0) or row-major
+// [S, pitch] (row_major 1).
 extern "C" int gnuais_pipeline_fused(
     const void* x, const void* hist, const void* dpll_in, const void* hdlc_in,
     const void* reg_in, void* cand_valid, void* words, void* fields,
     void* lost2, void* over, void* dpll_out, void* hdlc_out, void* reg_out,
     int S, int T, int n_valid, int block_base, int lost2_lo, int lost2_hi,
-    int K, int fir_mode, void* stream) {
+    int K, int fir_mode, int row_major, int pitch, void* stream) {
   gnuais::PipelineArgs a{
       static_cast<const int16_t*>(x), static_cast<const float*>(hist),
       static_cast<const int32_t*>(dpll_in), static_cast<const int32_t*>(hdlc_in),
@@ -32,6 +34,6 @@ extern "C" int gnuais_pipeline_fused(
       static_cast<int32_t*>(fields), static_cast<int32_t*>(lost2),
       static_cast<int32_t*>(over), static_cast<int32_t*>(dpll_out),
       static_cast<int32_t*>(hdlc_out), static_cast<int32_t*>(reg_out), S, T,
-      n_valid, block_base, lost2_lo, lost2_hi, K};
+      n_valid, block_base, lost2_lo, lost2_hi, K, row_major, pitch};
   return gnuais::launch_pipeline<true>(a, fir_mode, stream);
 }

@@ -1,5 +1,5 @@
-// One stream of the fused decode kernel, shared by kernels B1
-// (pipeline_compact.cu) and B2 (pipeline_fused.cu).
+// The fused decode kernel shared by kernels B1 (pipeline_compact.cu) and
+// B2 (pipeline_fused.cu).
 //
 // Replaces the body of the TPU kernel gnuais_tpu/ops/fused.py
 // `_pipeline_kernel`, which serves both of its wrappers through
@@ -22,22 +22,43 @@
 // completions are >= ~47 slots apart); a later one in the same chunk is
 // counted in `over` instead.
 //
-// What bounds it on an H100: each stream is a long sequential chain (36
-// float multiply-adds, or 23 float operations for the lobe FIR, ~10
-// integer ops of DPLL per sample and a branchy deframer step every 4
-// samples) with no parallelism inside the stream, so a thread waits on
-// its chain and its loads, far from the card's bandwidth or FLOP rate.
-// Design: one thread per stream, all state in registers (the 36-float
-// window shifted with static indices, the DPLL and HDLC variables, the
-// 15-word register); time-major [T, S] input so a warp's 32 loads at one
-// time step are neighbouring.  Frames are rare (tens per stream per
-// block), so each is written straight to global memory.  In the mxu
-// mode the FIR leaves the chain: the warp filters a 32-sample chunk of
-// its 32 streams in one product, each chunk's 32 loads issued together
-// before it, and every lane then runs the same per-sample DPLL and
-// per-group deframer over its 32 values in shared memory; the control
-// flow stays warp-uniform up to the product, which needs all 32 lanes.
-// The vpu FIR keeps its FMA-free rounding (__fmul_rn, __fadd_rn).
+// What bounds it on an H100: each stream is one long sequential chain
+// (~10 integer operations of DPLL a sample and a branchy deframer step
+// every 4 samples) with no parallelism inside the stream; the roofline
+// kernel R1 (roofline.cu) runs that chain alone at ~33 ns a sample, 1.6
+// ms for 4096 x 49,152.  The FIR (71 float operations a sample exact, 23
+// lobe, 216 TF32 in mxu) and the loads do not depend on the chain.
+//
+// Design: warp specialisation around a ring of filtered chunks in
+// shared memory (pipeline_ring.cuh).  A block serves 32 streams with
+// one consumer warp (warp 0) and P producer warps:
+// - the consumer, one lane a stream, runs only the recurrence (DPLL
+//   sample_step per sample, slot_step per 4-sample group), its state in
+//   registers, reading each chunk's 32 filtered values from its ring
+//   stage;
+// - producer p filters chunks p, p + P, ...: it copies the chunk's raw
+//   window (cp.async where aligned; the input time-major [T, S] or
+//   row-major [S, T], as the caller holds it), issues the next chunk's
+//   copy, and writes the 32 x 32 filtered values into the chunk's stage:
+//   fir_exact_at / fir_lobe_at over a 72-float window in registers
+//   (FMA-free, __fmul_rn/__fadd_rn, so bitwise the exact chain's), or
+//   the 3xTF32 product of fir_mxu.cuh;
+// - full/empty mbarriers per stage, kStages = 4 >= P + 1.
+// Lanes past the last stream (s >= S) filter zeros and write nothing.
+// Frames are rare (tens per stream per block), so each is written
+// straight to global memory.
+//
+// Chosen per FIR mode (fused.pipeline_shape reads them back; registers
+// per thread as nvcc -Xptxas -v gives them for sm_90a, in the log beside
+// the built library): vpu P = 3, lobe P = 2, mxu P = 3, kStages = 4;
+// blocks of 128, 96 and 128 threads, ceil(S / 32) of them (128 at 4096
+// streams); dynamic shared memory a block 30,272 / 25,664 / 83,328
+// bytes (the ring 16,448, a producer's copy buffer 4,608; mxu: + the
+// band 18,432 and a window 11,520 a producer, 128-byte aligned);
+// registers 128 (the cap of 4 blocks an SM; the vpu producer spills
+// 340 bytes) / 155 / 241 (144 bytes of stack), the same for B1 and B2.
+// At 16,384 streams vpu and lobe run in one wave (4 blocks an SM); mxu,
+// whose shared memory allows 2 blocks an SM, in two.
 
 #pragma once
 
@@ -45,6 +66,7 @@
 #include <stdint.h>
 
 #include "fir_mxu.cuh"
+#include "pipeline_ring.cuh"
 #include "pipeline_step.cuh"
 
 namespace gnuais {
@@ -54,7 +76,7 @@ enum class Fir { kExact, kLobe, kMxu };
 // Pointers and sizes of one launch; the layouts are the wrappers' in
 // gnuais_tpu_torch/ops/fused.py.
 struct PipelineArgs {
-  const int16_t* x;        // [T, S]
+  const int16_t* x;        // [T, pitch] time-major or [S, pitch] row-major
   const float* hist;       // [S, 36]
   const int32_t* dpll_in;  // [3, S]: pll, prev, lastbit
   const int32_t* hdlc_in;  // [8, S]: HdlcState order
@@ -70,15 +92,28 @@ struct PipelineArgs {
   int32_t* reg_out;        // [S, 15]
   int S, T, n_valid, block_base, lost2_lo, lost2_hi;
   int slots;               // F (dense) or K = 2 * ceil(T / 256) (candidates)
+  int row_major, pitch;    // the input's layout and its row stride
 };
 
+// Producer warps a consumer warp has, per FIR mode: enough that the
+// chunks are filtered faster than the consumer's chain takes them.
 template <Fir kFir>
-__device__ __forceinline__ float fir(const float (&win)[kFirLen]) {
-  if constexpr (kFir == Fir::kLobe) {
-    return fir_lobe(win);
-  } else {
-    return fir_exact(win);
-  }
+constexpr int kProducers = kFir == Fir::kMxu ? kMxuProducers
+                                             : (kFir == Fir::kLobe ? 2 : 3);
+
+template <Fir kFir>
+constexpr int kPipelineThreads = 32 * (1 + kProducers<kFir>);
+
+// Blocks an SM must hold, so that 16,384 streams (512 blocks) run in one
+// wave on 132 SMs: it caps the registers a thread at 65,536 / (4 x 128).
+// The mxu mode's shared memory allows two blocks an SM only.
+template <Fir kFir>
+constexpr int kMinBlocks = kFir == Fir::kMxu ? 2 : 4;
+
+template <Fir kFir>
+constexpr size_t pipeline_shared_bytes() {
+  return kFir == Fir::kMxu ? sizeof(MxuShared)
+                           : sizeof(RingShared<kProducers<kFir>>);
 }
 
 // A stream's DPLL and HDLC carry and its frame book-keeping.
@@ -179,89 +214,114 @@ __device__ __forceinline__ void sample_step(const PipelineArgs& a,
   }
 }
 
-// `a` by value, not by reference: a reference to the kernel's parameter
-// made every kernel ~8 % slower on an H100 (B1: 24.3 against 22.4 ms
-// per 4096 x 49,152 block).  The FIR modes vpu and lobe: the window in
-// registers, one sample loaded per step.
-template <Fir kFir, bool kCandidates>
-__device__ __forceinline__ void pipeline_stream(const PipelineArgs a, int s) {
-  float win[kFirLen];
-#pragma unroll
-  for (int i = 0; i < kFirLen; ++i) win[i] = a.hist[(size_t)s * kFirLen + i];
-  StreamRegs r;
-  load_carry(a, s, r);
-  const int nv = a.n_valid < a.T ? a.n_valid : a.T;  // samples past n_valid freeze
-  const int n_groups = nv > 0 ? (nv + 3) / 4 : 0;
-  for (int g = 0; g < n_groups; ++g) {
-    bool gval = false;
-    int32_t gbit = 0, gpos = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int t = 4 * g + k;
-      if (t < nv) {
-        const float f = fir<kFir>(win);
-#pragma unroll
-        for (int i = 0; i < kFirLen - 1; ++i) win[i] = win[i + 1];
-        // read-only path, as a const __restrict__ parameter would give
-        win[kFirLen - 1] = static_cast<float>(__ldg(a.x + (size_t)t * a.S + s));
-        sample_step(a, r, f, t, gval, gbit, gpos);
-      }
-    }
-    slot_step<kCandidates>(a, s, g, gval, gbit, gpos, r);
-  }
-  store_carry<kCandidates>(a, s, r);
-}
-
-// The mxu FIR mode (fir_mxu.cuh, mxu_chunks): per 32-sample chunk, every
-// lane of the warp stages its stream's samples, the warp runs the banded
-// product, and each lane runs the chain above over its 32 filtered
-// values (8 groups).  The chunk count follows the scalar n_valid, so
-// the control flow is the same on every lane up to the product; a lane
-// past the last stream (s >= S) stages zeros, takes part in the product
-// and writes nothing.
+// The consumer warp: stream s's chain over the ring's chunks.  A lane
+// past the last stream takes part in the barriers only.
 template <bool kCandidates>
-__device__ __forceinline__ void pipeline_stream_mxu(const PipelineArgs a,
-                                                    int s, const MxuBand& band,
-                                                    MxuWarp& w) {
+__device__ __forceinline__ void pipeline_consumer(const PipelineArgs a,
+                                                  Ring& ring, int s, int nv,
+                                                  int n_chunks) {
   const bool live = s < a.S;
   StreamRegs r;
   if (live) load_carry(a, s, r);
-  const int nv = a.n_valid < a.T ? a.n_valid : a.T;
-  mxu_chunks(band, w, a.x, a.S, a.T, nv, live ? s : -1,
-             live ? a.hist + (size_t)s * kFirLen : nullptr,
-             [&](int t0, const float* f) {
+  ring_consume(ring, n_chunks, [&](int t0, const float* f) {
+    if (!live) return;
+    // each group's 4 values read one group ahead of its chain
+    float next[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) next[k] = f[k * 32];
 #pragma unroll 1
-    for (int q = 0; q < kMxuUnroll / 4; ++q) {
+    for (int q = 0; q < kChunk / 4; ++q) {
       const int g = t0 / 4 + q;
+      if (4 * g >= nv) break;
+      float cur[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cur[k] = next[k];
+      if (q + 1 < kChunk / 4) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) next[k] = f[(4 * q + 4 + k) * 32];
+      }
       bool gval = false;
       int32_t gbit = 0, gpos = 0;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int t = 4 * g + k;
-        if (t < nv) sample_step(a, r, f[(4 * q + k) * kMxuLd], t, gval, gbit, gpos);
+        if (t < nv) sample_step(a, r, cur[k], t, gval, gbit, gpos);
       }
-      if (4 * g < nv) slot_step<kCandidates>(a, s, g, gval, gbit, gpos, r);
+      slot_step<kCandidates>(a, s, g, gval, gbit, gpos, r);
     }
   });
   if (live) store_carry<kCandidates>(a, s, r);
 }
 
-constexpr int kPipelineThreads = 128;
+// Producer warp p with the FIR kFir (vpu or lobe): the chunk's window in
+// registers, its 32 outputs written into the stage.
+template <Fir kFir>
+__device__ __forceinline__ void pipeline_producer(RingShared<kProducers<kFir>>& sh,
+                                                  const RingInput& in, int s0,
+                                                  int n_chunks, int p,
+                                                  const float* hist) {
+  const int lane = threadIdx.x % 32;
+  float v[kRawLen];
+  ring_produce(sh.ring, sh.raw[p], in, s0, n_chunks, p, kProducers<kFir>,
+               [&](int t0) {
+                 raw_column(sh.raw[p], in.row_major, lane, t0, hist, v);
+               },
+               [&](float* stage) {
+    // output k, sample t0 + k, filters samples t0 + k - 36 .. t0 + k - 1
+    constexpr int o = kRawLead - kFirLen;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+      stage[k * 32 + lane] = kFir == Fir::kLobe ? fir_lobe_at(v, o + k)
+                                                : fir_exact_at(v, o + k);
+  });
+}
 
-// The kernel of both entry points: one thread per stream.
+// The kernel of both entry points: block b serves streams 32b .. 32b + 31,
+// warp 0 the chain, warps 1 .. P the FIR.  `a` by value: a reference to
+// the kernel's parameter made the earlier one-thread-per-stream kernels
+// ~8 % slower on an H100.
 template <Fir kFir, bool kCandidates>
-__global__ void __launch_bounds__(kPipelineThreads) pipeline_kernel(const PipelineArgs a) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if constexpr (kFir == Fir::kMxu) {
-    unsigned char* smem = mxu_shared();
-    MxuBand& band = *reinterpret_cast<MxuBand*>(smem);
-    MxuWarp* warps = reinterpret_cast<MxuWarp*>(smem + sizeof(MxuBand));
-    mxu_band_init(band);
-    __syncthreads();
-    pipeline_stream_mxu<kCandidates>(a, s, band, warps[threadIdx.x / 32]);
-  } else {
-    if (s < a.S) pipeline_stream<kFir, kCandidates>(a, s);
+__global__ void __launch_bounds__(kPipelineThreads<kFir>, kMinBlocks<kFir>)
+pipeline_kernel(const PipelineArgs a, bool vec) {
+  unsigned char* smem = block_shared();
+  auto& sh = *reinterpret_cast<RingShared<kProducers<kFir>>*>(smem);
+  ring_init(sh.ring);
+  if constexpr (kFir == Fir::kMxu)
+    mxu_band_init(reinterpret_cast<MxuShared*>(smem)->band);
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  const int s0 = blockIdx.x * kChunk;
+  const int s = s0 + threadIdx.x % 32;
+  // samples past n_valid freeze; every warp counts the same chunks
+  const int nv = a.n_valid < a.T ? (a.n_valid > 0 ? a.n_valid : 0) : a.T;
+  const int n_chunks = (nv + kChunk - 1) / kChunk;
+  if (warp == 0) {
+    pipeline_consumer<kCandidates>(a, sh.ring, s, nv, n_chunks);
+    return;
   }
+  const RingInput in{a.x, a.hist, a.S, a.T, a.pitch, a.row_major != 0, vec};
+  const float* hist = s < a.S ? a.hist + (size_t)s * kFirLen : nullptr;
+  if constexpr (kFir == Fir::kMxu) {
+    mxu_produce(*reinterpret_cast<MxuShared*>(smem), in, s0, n_chunks,
+                warp - 1, hist);
+  } else {
+    pipeline_producer<kFir>(sh, in, s0, n_chunks, warp - 1, hist);
+  }
+}
+
+template <Fir kFir, bool kCandidates>
+int launch_pipeline_mode(const PipelineArgs& a, cudaStream_t st) {
+  constexpr int threads = kPipelineThreads<kFir>;
+  constexpr size_t smem = pipeline_shared_bytes<kFir>();
+  // above 48 KB a block's dynamic shared memory must be asked for
+  const cudaError_t err = cudaFuncSetAttribute(
+      pipeline_kernel<kFir, kCandidates>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (a.S + kChunk - 1) / kChunk;
+  const bool vec = ring_vec_ok(a.x, a.pitch);
+  pipeline_kernel<kFir, kCandidates><<<blocks, threads, smem, st>>>(a, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches pipeline_kernel<fir_mode, kCandidates> on `stream`
@@ -269,24 +329,11 @@ __global__ void __launch_bounds__(kPipelineThreads) pipeline_kernel(const Pipeli
 // so a refused launch, or an unknown mode, is reported to the caller.
 template <bool kCandidates>
 int launch_pipeline(const PipelineArgs& a, int fir_mode, void* stream) {
-  const int blocks = (a.S + kPipelineThreads - 1) / kPipelineThreads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fir_mode == 0) {
-    pipeline_kernel<Fir::kExact, kCandidates><<<blocks, kPipelineThreads, 0, st>>>(a);
-  } else if (fir_mode == 1) {
-    pipeline_kernel<Fir::kLobe, kCandidates><<<blocks, kPipelineThreads, 0, st>>>(a);
-  } else if (fir_mode == 2) {
-    // above 48 KB a block's dynamic shared memory must be asked for
-    constexpr size_t smem = mxu_shared_bytes(kPipelineThreads);
-    const cudaError_t err = cudaFuncSetAttribute(
-        pipeline_kernel<Fir::kMxu, kCandidates>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    pipeline_kernel<Fir::kMxu, kCandidates><<<blocks, kPipelineThreads, smem, st>>>(a);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (fir_mode == 0) return launch_pipeline_mode<Fir::kExact, kCandidates>(a, st);
+  if (fir_mode == 1) return launch_pipeline_mode<Fir::kLobe, kCandidates>(a, st);
+  if (fir_mode == 2) return launch_pipeline_mode<Fir::kMxu, kCandidates>(a, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace gnuais

@@ -96,6 +96,31 @@ GNUAIS_HD float fir_lobe(const float (&win)[kFirLen]) {
   return f;
 }
 
+// fir_exact and fir_lobe of the 36 samples win[k .. k + 35] of a longer
+// window (a 32-sample chunk's, pipeline_ring.cuh), in the same order
+// with the same rounding, so bitwise equal to them.  Called with k a
+// constant of an unrolled loop, so that the window stays in registers.
+template <int kWin>
+GNUAIS_HD float fir_exact_at(const float (&win)[kWin], int k) {
+  constexpr float taps[kFirLen] = {GNUAIS_FIR_TAPS};
+  float f = fmul_rn(win[k], taps[0]);
+#pragma unroll
+  for (int i = 1; i < kFirLen; ++i) f = fadd_rn(f, fmul_rn(win[k + i], taps[i]));
+  return f;
+}
+
+template <int kWin>
+GNUAIS_HD float fir_lobe_at(const float (&win)[kWin], int k) {
+  constexpr float taps[kFirLen] = {GNUAIS_FIR_TAPS};
+  float f = fmul_rn(fadd_rn(win[k + kLobeLo], win[k + kFirLen - 1 - kLobeLo]),
+                    taps[kLobeLo]);
+#pragma unroll
+  for (int i = kLobeLo + 1; i < (kLobeLo + kLobeHi + 1) / 2; ++i)
+    f = fadd_rn(f, fmul_rn(fadd_rn(win[k + i], win[k + kFirLen - 1 - i]),
+                           taps[i]));
+  return f;
+}
+
 struct DpllRegs {
   int32_t pll, prev, lastbit;
 };

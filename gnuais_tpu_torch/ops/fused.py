@@ -11,15 +11,19 @@
 - ``dpll_fused`` (B4, ``csrc/dpll.cu``): the DPLL alone over filtered
   samples.
 
-B1 and B2 are one kernel body (``csrc/pipeline_kernel.cuh``) with three
-FIR modes: ``vpu`` (the exact FIR), ``lobe`` (the main-lobe FIR,
-``fir.fir_lobe``) and ``mxu`` (a banded matrix product per 32-sample
-chunk on the tensor cores, ``csrc/fir_mxu.cuh``; plain version
-``fir.fir_mxu``).  Both take a time-major ``[T, S]`` input as it comes
-(``pretiled_streams``), the layout ``tile_superblock`` makes, or an
-``[S, T]`` block that they transpose first.  ``fir_mxu_probe``
-(``csrc/fir_probe.cu``) runs the ``mxu`` product alone, so that the card
-can hold its filtered values against ``fir.fir_mxu``.
+B1 and B2 are one kernel body (``csrc/pipeline_kernel.cuh``): per 32
+streams, FIR producer warps filter 32-sample chunks into a ring in
+shared memory (``csrc/pipeline_ring.cuh``) and one consumer warp runs
+the chain over them.  Three FIR modes: ``vpu`` (the exact FIR),
+``lobe`` (the main-lobe FIR, ``fir.fir_lobe``) and ``mxu`` (a banded
+matrix product per chunk on the tensor cores, ``csrc/fir_mxu.cuh``;
+plain version ``fir.fir_mxu``).  The kernel reads its input in the
+layout the caller holds, with no copy: time-major ``[T, S]``
+(``pretiled_streams``, the layout ``tile_superblock`` makes) or an
+``[S, T]`` block (a view with unit stride along time, any row pitch).
+``fir_mxu_probe`` (``csrc/fir_probe.cu``) runs the ``mxu`` producers
+alone, so that the card can hold their filtered values against
+``fir.fir_mxu``.
 
 Each wrapper launches its kernel for a CUDA tensor, adding one to its
 ``launches`` counter, and runs its plain PyTorch version (``*_reference``,
@@ -221,22 +225,34 @@ def _launch(entry: str, *args) -> None:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
 
 
+def _kernel_input(rows: torch.Tensor, pretiled: bool):
+    """The fused kernels' input as the caller holds it: (tensor, row_major,
+    pitch).  Pretiled, the [T, S] tensor behind ``rows`` (unit stride
+    along the streams); else ``rows`` itself when its time axis has unit
+    stride (a copy otherwise).  pitch: the stride of the outer axis."""
+    x = rows.t() if pretiled else rows
+    if x.stride(1) != 1 and x.shape[1] > 1:   # a size-1 axis has any stride
+        if pretiled:
+            raise ValueError("pretiled input must be a [T, S] tensor with "
+                             "unit stride along the streams")
+        x = x.contiguous()
+    return x, int(not pretiled), x.stride(0)
+
+
 def _launch_pipeline(wrapper, rows, pretiled, n_valid, history, dpll, hdlc,
                      slots, block_base, fir_mode, lost2_lo, lost2_hi):
     """Launch B1 (``wrapper`` is ``pipeline_fused_compact``: dense slots)
     or B2 (``pipeline_fused``: candidate slots) on ``rows`` ([S, T];
-    already time-major in memory when ``pretiled``), with ``slots`` frame
-    slots per stream, and add one to ``wrapper.launches``.  Returns
-    (count_raw [S] or cand_valid [S, slots], words, length, start, end,
-    lost2, over, new_history, new_dpll, new_hdlc)."""
+    time-major in memory when ``pretiled``, read so by the kernel), with
+    ``slots`` frame slots per stream, and add one to ``wrapper.launches``.
+    Returns (count_raw [S] or cand_valid [S, slots], words, length,
+    start, end, lost2, over, new_history, new_dpll, new_hdlc)."""
     candidates = wrapper is pipeline_fused
     s, t = rows.shape
     dev = rows.device
     _check_state(rows, torch.int16, history=history,
                  **dict(zip(dpll._fields, dpll)), **hdlc._asdict())
-    x = rows.t() if pretiled else _time_major(rows)
-    if not x.is_contiguous():
-        raise ValueError("pretiled input must be a contiguous [T, S] tensor")
+    x, row_major, pitch = _kernel_input(rows, pretiled)
     hist = history.to(torch.float32).contiguous()
     dpll_in = torch.stack(list(dpll)).to(_I32).contiguous()           # [3, S]
     hdlc_in = torch.stack(list(hdlc[:8])).to(_I32).contiguous()       # [8, S]
@@ -261,13 +277,26 @@ def _launch_pipeline(wrapper, rows, pretiled, n_valid, history, dpll, hdlc,
             else "gnuais_pipeline_compact"
         _launch(entry, x, hist, dpll_in, hdlc_in, reg_in, first, words,
                 fields, lost2, over, dpll_out, hdlc_out, reg_out, s, t, nv,
-                base, lo, hi, slots, FIR_MODES[fir_mode])
+                base, lo, hi, slots, FIR_MODES[fir_mode], row_major, pitch)
         wrapper.launches += 1
     new_dpll = DpllState(*dpll_out.unbind(0))
     new_hdlc = HdlcState(*hdlc_out.unbind(0), shiftreg=reg_out)
     new_history = _carry_history(rows, hist, nv)
     return (first, words, fields[0], fields[1], fields[2], lost2, over,
             new_history, new_dpll, new_hdlc)
+
+
+def pipeline_shape(fir_mode: str) -> dict:
+    """The launch shape of B1 and B2 in ``fir_mode``, as the kernel source
+    sets it: producer warps, ring stages, warps a block and dynamic
+    shared memory a block in bytes (the kernel library, built on first
+    use)."""
+    import ctypes
+    from . import _build
+    out = (ctypes.c_int * 4)()
+    if _build.library().gnuais_pipeline_shape(FIR_MODES[fir_mode], out):
+        raise ValueError(f"unknown fir_mode {fir_mode!r}")
+    return dict(zip(("producers", "stages", "warps", "shared_bytes"), out))
 
 
 def pipeline_fused_compact(samples: torch.Tensor, n_valid: int,
@@ -351,9 +380,9 @@ pipeline_fused.launches = 0
 def fir_mxu_probe(samples: torch.Tensor,
                   history: torch.Tensor) -> torch.Tensor:
     """The ``mxu`` FIR of kernels B1 and B2 alone, on the card
-    (``csrc/fir_probe.cu``): the same staging and tensor-core product,
-    its filtered values written out instead of fed to the DPLL.  A test
-    instrument, on no decode path.
+    (``csrc/fir_probe.cu``): the same producer warps (copies, staging,
+    tensor-core product) and ring, its filtered values written out
+    instead of fed to the DPLL.  A test instrument, on no decode path.
 
     samples: int16 [S, T] on a CUDA device; history: float32 [S, 36].
     Returns the filtered float32 [S, T] (plain version: ``fir.fir_mxu``;
@@ -369,13 +398,13 @@ def fir_mxu_probe(samples: torch.Tensor,
 def _launch_probe(samples, history):
     _check_state(samples, torch.int16, history=history)
     s, t = samples.shape
-    x = _time_major(samples)
+    x, _, pitch = _kernel_input(samples, False)
     hist = history.to(torch.float32).contiguous()
-    out = torch.empty((t, s), dtype=torch.float32, device=samples.device)
+    out = torch.empty((s, t), dtype=torch.float32, device=samples.device)
     if s and t:
-        _launch("gnuais_fir_probe", x, hist, out, s, t)
+        _launch("gnuais_fir_probe", x, hist, out, s, t, pitch)
         fir_mxu_probe.launches += 1
-    return out.t().contiguous()
+    return out
 
 
 fir_mxu_probe.launches = 0

@@ -13,7 +13,9 @@ kernels), then in the order listed and back again, ``rounds`` times,
 each call under a profiler of its own.  For each wrapper the script
 prints every device kernel of its calls (its hand-written kernel and the
 copies and decodes around it) with its mean device time over the calls
-whose trace holds it, their sum, and the card's name and power limit.  Run it in a process of its
+whose trace holds it, their sum, and the card's name and power limit;
+for B1 and B2 also the launch shape (``fused.pipeline_shape``: producer
+warps P, ring stages N, warps a block).  Run it in a process of its
 own: nothing else may use the card meanwhile.
 """
 
@@ -104,7 +106,14 @@ def main(argv=None) -> int:
         # profiler may drop a call's events (it warns that it clears
         # them at the end of each cycle)
         mean = {k: sum(v) / len(v) for k, v in kernels.items()}
-        print(f"{name}: {sum(mean.values()):.3f} ms on the device")
+        shape = ""
+        if name.startswith(("B1", "B2")):
+            mode = name.split()[-1]
+            sh = fused.pipeline_shape(mode if mode in fused.FIR_MODES
+                                      else "vpu")
+            shape = (f" (P={sh['producers']} N={sh['stages']} "
+                     f"warps/block={sh['warps']})")
+        print(f"{name}: {sum(mean.values()):.3f} ms on the device{shape}")
         for kernel, ms in sorted(mean.items(), key=lambda kv: -kv[1]):
             print(f"  {ms:9.3f} ms  {len(kernels[kernel])}/{calls} calls  "
                   f"{kernel[:100]}")

@@ -138,6 +138,66 @@ def test_mxu_kernels_match_plain(cuda, case):
     _assert_same([v[rows] for v in k1[:5]], [v[rows] for v in kv[:5]])
 
 
+# (S, T, n_valid of three chained blocks): ragged and single streams,
+# T on and off the 32-sample chunk grid, n_valid around the chunk edges
+RING_EDGES = {
+    "S1_T1000": (1, 1000, (1000, 0, 1)),
+    "S31_T1024": (31, 1024, (20, 31, 1024)),
+    "S33_T8192": (33, 8192, (32, 8192, 8192 - 333)),
+    "S37_T1000": (37, 1000, (33, 1, 1000 - 333)),
+    "S4096_T1024": (4096, 1024, (1024, 31, 1024 - 333)),
+}
+
+
+@pytest.mark.parametrize("pretiled", [False, True], ids=["row", "time"])
+@pytest.mark.parametrize("fir_mode", ["vpu", "lobe", "mxu"])
+@pytest.mark.parametrize("case", sorted(RING_EDGES))
+def test_ring_edges_match_plain(cuda, case, fir_mode, pretiled):
+    """B2 and B1 (the producer and consumer warps around the ring) over
+    three chained blocks against their plain versions, every output and
+    carry leaf bitwise, each side on its own carry; the input row-major
+    or time-major (pretiled_streams)."""
+    s, t, nvs = RING_EDGES[case]
+    x = captures.mixed(s, 3 * t, seed=s + t)
+    ck = cp = init_carry(s, cuda)
+    for b, nv in enumerate(nvs):
+        xb = torch.from_numpy(np.ascontiguousarray(x[:, b * t:(b + 1) * t])).to(cuda)
+        kw = dict(block_base=b * t + 5, fir_mode=fir_mode)
+        xin = xb.t().contiguous() if pretiled else xb
+        tiled = dict(pretiled_streams=s) if pretiled else {}
+        before = (fused.pipeline_fused.launches,
+                  fused.pipeline_fused_compact.launches)
+        k2 = fused.pipeline_fused(xin, nv, ck.history, ck.dpll, ck.hdlc,
+                                  **kw, **tiled)
+        k1 = fused.pipeline_fused_compact(xin, nv, ck.history, ck.dpll,
+                                          ck.hdlc, frame_slots=5, **kw,
+                                          **tiled)
+        assert (fused.pipeline_fused.launches,
+                fused.pipeline_fused_compact.launches) == tuple(
+                    n + 1 for n in before)
+        p2 = fused.pipeline_fused_reference(xb, nv, cp.history, cp.dpll,
+                                            cp.hdlc, **kw)
+        torch.cuda.synchronize()
+        _assert_same(k2, p2)
+        _assert_same(k1, fused.compact_slots(p2, 5))
+        ck, cp = PipelineCarry(*k2[7:]), PipelineCarry(*p2[7:])
+
+
+def test_row_major_view_is_read_in_place(cuda):
+    """A row-major block that is a view of a wider array (an odd pitch,
+    no 16-byte copies) gives the same as its contiguous copy."""
+    s, t = 37, 1024
+    wide = torch.from_numpy(captures.mixed(s, t + 7, seed=5)).to(cuda)
+    view = wide[:, 3:3 + t]
+    c = init_carry(s, cuda)
+    for mode in fused.FIR_MODES:
+        a = fused.pipeline_fused(view, t, c.history, c.dpll, c.hdlc,
+                                 fir_mode=mode)
+        b = fused.pipeline_fused(view.contiguous(), t, c.history, c.dpll,
+                                 c.hdlc, fir_mode=mode)
+        _assert_same(a, b)
+
+
 def test_mxu_chained_blocks_and_short_tail(cuda):
     """B1 mxu over three chained blocks of T = 1000 (the last chunk of
     32 padded), the last one 20 samples, each side on its own carry."""
