@@ -9,7 +9,8 @@ raises and exits non-zero:
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Build: one nvcc per kernel source of gnuais_tpu_torch/csrc (B1
    pipeline_compact.cu, B2 pipeline_fused.cu, B3 frontend.cu, B4
-   dpll.cu, the mxu probe fir_probe.cu, R1 and R2 roofline.cu), all
+   dpll.cu, the deframer hdlc.cu, the mxu probe fir_probe.cu, R1 and R2
+   roofline.cu), all
    started together, linked into one library (registers and spills
    printed per kernel).
 3. Parity at small shapes, each kernel against its plain PyTorch version
@@ -19,12 +20,16 @@ raises and exits non-zero:
    wrong-size and CRC-reject frames; n_valid = T-333 and 20; a lost2
    window; frame_slots = 3 (overflow); three blocks chained through the
    carry.  B2 and B1 with the lobe FIR at S = 4096, T = 8192.  B3
-   (frontend) and B4 (DPLL): S = 1, 37, 256 at T = 4096 on mixed,
-   noisy-frame and garbage captures, n_valid = T, T-333, 35, 1 and 0,
-   nonzero block bases and history, three chained blocks (B4 on the
-   exact FIR of the same captures).  Then B2, B1, B3 and B4 on every
-   block the fixture gives the command line (phases 5 and 12): S = 1,
-   T = 1024, n_valid 1020 and a 990-sample tail, 73 blocks chained.
+   (frontend), B4 (DPLL) and the deframer (on B3's group codes and on
+   B4's sample codes, with a lost2 window): S = 1, 37, 256 at T = 4096
+   on mixed, noisy-frame, garbage and wrong-size/CRC-reject captures,
+   n_valid = T, T-333, 35, 1 and 0, nonzero block bases and history,
+   three chained blocks (B4 on the exact FIR of the same captures).
+   Then B2, B1, B3, B4 and the deframer on every block the fixture
+   gives the command line (phases 5 and 12): S = 1, T = 1024, n_valid
+   1020 and a 990-sample tail, 73 blocks chained; B4 and the deframer
+   on sample codes also as the exact backend feeds them, T = 1020 and
+   the tail padded to 1020.
    B2 and B1 with the mxu FIR (tensor cores) against their plain
    versions at the small shapes above, every leaf, and B1 mxu against
    B1 with the exact FIR: the same frames and carry on every capture
@@ -71,18 +76,20 @@ raises and exits non-zero:
    the three fleet blocks with B2 and with kernel_compact (B1); every
    payload equals the encoded one.  8m: the same with mxu_fir.
 9. Path S: PipelinedDecoder(4096 streams, 49,152-sample blocks,
-   fused_frontend, depth 2) over two fleet blocks: kernel B3 and the
-   plain deframer; every payload equal to the encoded ones, counters
-   (8 x blocks, 0, 0).
-10. B3 and B4 on the first fleet block at full size against their plain
-   versions, bitwise; their times and bounds, and Path S's split of one
-   block (kernel, hdlc_scan, drain).
+   fused_frontend, depth 2) over the three fleet blocks: kernel B3 and
+   the deframer kernel; every payload equal to the encoded ones,
+   counters (8 x blocks, 0, 0).
+10. B3, B4 and the deframer (on B3's and on B4's codes) on the first
+   fleet block at full size against their plain versions, bitwise;
+   their times and bounds, and Path S's split of one block (B3, the
+   deframer and compaction, the host drain).
 11. PipelinedDecoder(fused_pipeline, device_crc, depth 2), kernel B2,
    over the three fleet blocks one by one, and with superblock 3 as one
    submission; frames and counters equal phase 4's; wall times.
 12. Path F: ``gnuais-tpu-torch -l tests/fixtures/standard_capture.raw
-   --backend fast`` (kernel B4) reproduces the stdout byte for byte
-   with counters (49, 0, 0).
+   --backend fast`` and ``--backend exact`` (the exact FIR, kernel B4
+   and the deframer kernel) reproduce the stdout byte for byte with
+   counters (49, 0, 0).
 13. Probe: the mxu producer stage of B1/B2 alone (fir_mxu_probe: the
    same producer warps and ring, a consumer that writes the values out)
    on the first fleet block, within fused.MXU_BOUND of the exact FIR;
@@ -91,11 +98,13 @@ raises and exits non-zero:
    their plain versions at S = 64, bitwise, and at S = 4096 (timed);
    then the tool's table (python -m gnuais_tpu_torch.roofline) at 4096
    and 16,384 streams, beside B1's ns a sample from phase 6.
-Then one JSON line of the ten kernel modes (launch counts from their own
-paths, each count set to 0 just before its path: B2 over phases 4-5, B1
-in phase 7's pretiled call, B2 lobe and B1 lobe over phase 8, B1 mxu and
-B2 mxu over phases 7m and 8m, B3 over phase 9, B4 over phase 12, R1 and
-R2 over phase 14's table; times and bounds at the fleet size, R1's and
+Then one JSON line of the twelve kernel modes (launch counts from their
+own paths, each count set to 0 just before its path: B2 over phases
+4-5, B1 in phase 7's pretiled call, B2 lobe and B1 lobe over phase 8,
+B1 mxu and B2 mxu over phases 7m and 8m, B3 over phase 9, B4 over phase
+12, the deframer on group codes over phase 9 and on sample codes over
+phase 12, R1 and R2 over phase 14's table; times and bounds at the
+fleet size, R1's and
 R2's at 4096 streams and 4096 steps), a check
 that neither JAX nor the JAX package was imported, the card's name and
 power limit, and the result line {"ok": true, "device": {...}}.
@@ -121,7 +130,7 @@ FLEET_STREAMS = 4096
 FLEET_BLOCK = 49_152
 FLEET_SLOTS = 32
 FLEET_BLOCKS = 3
-PATH_S_BLOCKS = 2        # Path S's depth: its plain deframer takes ~17 s a block
+PATH_S_BLOCKS = FLEET_BLOCKS  # Path S's depth
 VARIANTS = 32            # distinct captures per block, cycled over streams
 CLI_BLOCK = 1020         # the CLI's file-mode block: 1024 in whole 5-sample bits
 KERNEL_BLOCK = 1024      # the kernel backends pad it to a multiple of 512
@@ -140,6 +149,10 @@ PATH_M_CHECKED = 64      # Path M's streams held against the plain version
 # included, which the bound does not count); the integer DPLL and
 # deframer work is not counted.  The rates: gnuais_tpu_torch.card.
 FIR_FLOPS = {"vpu": 71, "lobe": 23, "mxu": 216}
+# below the time of any copy of a fleet block (403 MB of int16 read and
+# written: 0.24 ms at 3.35 TB/s): the limit on each kernel that B3's and
+# B4's wrappers launch beside their own
+COPY_MS = 0.1
 
 
 def check(cond: bool, msg: str) -> None:
@@ -186,6 +199,23 @@ def device_ms(fn, n=5):
         e.synchronize()
         ms.append(a.elapsed_time(e))
     return statistics.median(ms), res
+
+
+def device_kernels(fn) -> dict:
+    """{device kernel name: ms} of one call of fn, by torch.profiler."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms[ev.name] += ev.time_range.elapsed_us() / 1e3
+    return dict(ms)
 
 
 def host_ms(fn):
@@ -624,25 +654,46 @@ def phase_full_block(x0, carry0, carry1, fir_mode):
     return out
 
 
+def hdlc_both(codes, form, state, base=0, window=(None, None)):
+    """The deframer kernel (``hdlc_fused``) on ``codes`` (B3's group codes
+    or B4's sample codes, ``form``) and its plain version on the same
+    input, and the max abs error between them (bitwise equal, or the run
+    fails).  Returns (kernel's output, error)."""
+    import torch
+    from gnuais_tpu_torch.ops import fused
+    lo, hi = window
+    kw = dict(block_base=base, lost2_lo=lo, lost2_hi=hi)
+    k = fused.hdlc_fused(state, codes, form, **kw)
+    p = fused.hdlc_fused_reference(state, codes, form, **kw)
+    torch.cuda.synchronize()
+    return k, compare(k, p, f"deframer {form} S={codes.shape[1]} "
+                            f"rows={codes.shape[0]} base={base}")
+
+
 def phase_parity_front():
-    """Kernels B3 and B4 against their plain versions at small shapes;
-    returns the max abs error of each."""
+    """Kernels B3, B4 and the deframer against their plain versions at
+    small shapes (the deframer on B3's group codes and on B4's sample
+    codes, with a lost2 window); returns the max abs error of B3, of B4
+    and of the deframer on each form ({form: error})."""
     import torch
     from gnuais_tpu_torch import captures
     from gnuais_tpu_torch.ops import fir, fused
     from gnuais_tpu_torch.runtime.pipeline import init_carry
     t = 4096
     makers = {"mixed": captures.mixed, "noisy_frames": captures.noisy_frames,
-              "garbage": captures.garbage}
+              "garbage": captures.garbage,
+              "wrong_size_and_crc": captures.wrong_size_and_crc}
     cases = [(s, m, t) for s in (1, 37, 256) for m in makers]
     cases += [(s, "mixed", nv) for s in (1, 37, 256)
               for nv in (t - 333, 35, 1, 0)]
     err3 = err4 = 0.0
+    err_h = {"group": 0.0, "sample": 0.0}
     for i, (s, m, nv) in enumerate(cases):
         x = torch.from_numpy(makers[m](s, t, seed=30 + i)).cuda()
         hist = torch.from_numpy(captures.garbage(s, 36, seed=i)
                                 .astype(np.float32)).cuda()
-        dpll = init_carry(s, "cuda").dpll
+        c = init_carry(s, "cuda")
+        dpll = c.dpll
         base = 2**31 - 1000 if i % 2 else 77 * i
         what = f"S={s} {m} n_valid={nv} base={base}"
         k = fused.frontend_fused(x, nv, hist, dpll, base)
@@ -654,43 +705,70 @@ def phase_parity_front():
         p4 = fused.dpll_fused_reference(filtered, nv, dpll)
         torch.cuda.synchronize()
         err4 = max(err4, compare(k4, p4, f"B4 {what}"))
-        print(f"[3 parity B3/B4] {what}: both bitwise equal, "
-              f"{int(k[1].sum())} bit slots", flush=True)
+        window = (base + 500, base + 3000)
+        codes, _, _ = fused.frontend_codes(x, nv, hist, dpll)
+        h, e = hdlc_both(codes, "group", c.hdlc, base, window)
+        err_h["group"] = max(err_h["group"], e)
+        scodes, _ = fused.dpll_codes(filtered, nv, dpll)
+        err_h["sample"] = max(err_h["sample"], hdlc_both(
+            scodes, "sample", c.hdlc, base, window)[1])
+        print(f"[3 parity B3/B4/deframer] {what}: all three bitwise equal, "
+              f"{int(k[1].sum())} bit slots, {int(h[1].valid.sum())} frame "
+              f"candidates, lost2 {int(h[1].lost2.sum())}", flush=True)
     # three blocks chained through each side's own state
     s = 37
     x = captures.mixed(s, 3 * t, seed=8)
     c = init_carry(s, "cuda")
     kh = ph = c.history
     kd = pd = kd4 = pd4 = c.dpll
+    kq = pq = kq4 = pq4 = c.hdlc
     for b in range(3):
         xb = torch.from_numpy(np.ascontiguousarray(
             x[:, b * t:(b + 1) * t])).cuda()
         nv = t if b < 2 else t - 333
-        k = fused.frontend_fused(xb, nv, kh, kd, 2**31 - t + b * t)
-        p = fused.frontend_fused_reference(xb, nv, ph, pd, 2**31 - t + b * t)
+        base = 2**31 - t + b * t
+        k = fused.frontend_fused(xb, nv, kh, kd, base)
+        codes, _, _ = fused.frontend_codes(xb, nv, kh, kd)
+        p = fused.frontend_fused_reference(xb, nv, ph, pd, base)
         err3 = max(err3, compare(k, p, f"B3 chained block {b}"))
         kh, kd, ph, pd = k[3], k[4], p[3], p[4]
+        hk = fused.hdlc_fused(kq, codes, "group", block_base=base)
+        hp = fused.hdlc_fused_reference(pq, codes, "group", block_base=base)
+        err_h["group"] = max(err_h["group"], compare(
+            hk, hp, f"deframer group chained block {b}"))
+        kq, pq = hk[0], hp[0]
         filtered, _ = fir.fir_exact(xb, torch.zeros_like(kh), n_valid=nv)
         k4 = fused.dpll_fused(filtered, nv, kd4)
+        scodes, _ = fused.dpll_codes(filtered, nv, kd4)
         p4 = fused.dpll_fused_reference(filtered, nv, pd4)
         err4 = max(err4, compare(k4, p4, f"B4 chained block {b}"))
         kd4, pd4 = k4[2], p4[2]
-        print(f"[3 parity B3/B4] chained block {b}: both bitwise equal",
-              flush=True)
-    return err3, err4
+        hk = fused.hdlc_fused(kq4, scodes, "sample", block_base=base)
+        hp = fused.hdlc_fused_reference(pq4, scodes, "sample", block_base=base)
+        err_h["sample"] = max(err_h["sample"], compare(
+            hk, hp, f"deframer sample chained block {b}"))
+        kq4, pq4 = hk[0], hp[0]
+        print(f"[3 parity B3/B4/deframer] chained block {b}: all three "
+              f"bitwise equal", flush=True)
+    return err3, err4, err_h
 
 
 def phase_parity_fixture(dev: str = "cuda"):
-    """B2, B1, B3 and B4 against their plain versions on every block
+    """B2, B1, B3, B4 and the deframer against their plain versions on
+    every block
     that the command line's kernel backends (phases 5 and 12) give them
-    for the fixture: S = 1, blocks of CLI_BLOCK samples padded to
-    KERNEL_BLOCK with zeros and the short tail, each side chained
-    through its own state from block to block and at block_base 0, as
-    ``BatchPipeline.process`` runs them.  B1 (the command line's fused
-    step before B2, and ``kernel_compact``'s) lands the frames at the
-    running count in FIXTURE_SLOTS slots; B4 takes the exact FIR of
-    each block, the FIR history carried.  Returns the max abs error of
-    each."""
+    for the fixture: S = 1, at block_base 0, each side chained through
+    its own state from block to block, as ``BatchPipeline.process`` runs
+    them.  The kernel backends' blocks are CLI_BLOCK samples padded to
+    KERNEL_BLOCK with zeros and the short tail: B1 (the command line's
+    fused step before B2, and ``kernel_compact``'s) lands the frames at
+    the running count in FIXTURE_SLOTS slots; B4 takes the exact FIR of
+    each block, the FIR history carried; the deframer B3's group codes
+    and B4's sample codes, each chained through its own carry.  The
+    ``exact`` backend's blocks are CLI_BLOCK wide, the tail padded to
+    CLI_BLOCK (T = 1020: 255 slots, a partial tile), and B4 and the
+    deframer run on them as well.  Returns the max abs error of each
+    kernel, the deframer's by form ({form: error})."""
     import torch
     from gnuais_tpu_torch.ops import fir, fused
     from gnuais_tpu_torch.runtime.pipeline import PipelineCarry, init_carry
@@ -699,9 +777,32 @@ def phase_parity_fixture(dev: str = "cuda"):
     c = init_carry(1, dev)
     ck = cp = ck1 = c                            # B2, its plain version, B1
     kh, kd, ph, pd = c.history, c.dpll, c.history, c.dpll   # B3
-    fh, kd4, pd4 = c.history, c.dpll, c.dpll     # B4, FIR history shared
+    kq = pq = c.hdlc                             # the deframer on B3's codes
     err2 = err1 = err3 = err4 = 0.0
-    n_valid, frames, bits = [], 0, 0
+    err_h = {"group": 0.0, "sample": 0.0}
+
+    def fir_b4_deframer(x, nv, st, what):
+        """The exact FIR of ``x``, B4 on it and the deframer on B4's
+        sample codes, B4 and the deframer against their plain versions;
+        ``st`` is (FIR history, B4's state, its plain version's, the
+        deframer's, its plain version's).  Returns (st', bits, frame
+        candidates)."""
+        nonlocal err4
+        fh, kd4, pd4, kq4, pq4 = st
+        filtered, fh = fir.fir_exact(x, fh, n_valid=nv)
+        scodes, _ = fused.dpll_codes(filtered, nv, kd4)
+        k4 = fused.dpll_fused(filtered, nv, kd4)
+        p4 = fused.dpll_fused_reference(filtered, nv, pd4)
+        err4 = max(err4, compare(k4, p4, f"B4 {what}"))
+        hk = fused.hdlc_fused(kq4, scodes, "sample")
+        hp = fused.hdlc_fused_reference(pq4, scodes, "sample")
+        err_h["sample"] = max(err_h["sample"], compare(
+            hk, hp, f"deframer sample {what}"))
+        return ((fh, k4[2], p4[2], hk[0], hp[0]), int(k4[0].sum()),
+                int(hk[1].valid.sum()))
+
+    st4 = (c.history, c.dpll, c.dpll, c.hdlc, c.hdlc)
+    n_valid, frames, bits, framed = [], 0, 0, [0, 0]
     for b, off in enumerate(range(0, len(audio), CLI_BLOCK)):
         blk = audio[off:off + CLI_BLOCK]
         nv = len(blk)
@@ -720,27 +821,51 @@ def phase_parity_fixture(dev: str = "cuda"):
         ck, cp = PipelineCarry(*k[7:]), PipelineCarry(*p[7:])
         ck1 = PipelineCarry(*k1[7:])
         frames += int(k[0].sum())
+        codes, _, _ = fused.frontend_codes(x, nv, kh, kd)
         k = fused.frontend_fused(x, nv, kh, kd)
         p = fused.frontend_fused_reference(x, nv, ph, pd)
         err3 = max(err3, compare(k, p, f"B3 {what}"))
         kh, kd, ph, pd = k[3], k[4], p[3], p[4]
-        filtered, fh = fir.fir_exact(x, fh, n_valid=nv)
-        k4 = fused.dpll_fused(filtered, nv, kd4)
-        p4 = fused.dpll_fused_reference(filtered, nv, pd4)
-        err4 = max(err4, compare(k4, p4, f"B4 {what}"))
-        kd4, pd4 = k4[2], p4[2]
-        bits += int(k4[0].sum())
-    print(f"[3 parity fixture] B2, B1, B3 and B4 == plain, bitwise, on all "
+        hk = fused.hdlc_fused(kq, codes, "group")
+        hp = fused.hdlc_fused_reference(pq, codes, "group")
+        err_h["group"] = max(err_h["group"], compare(
+            hk, hp, f"deframer group {what}"))
+        kq, pq = hk[0], hp[0]
+        framed[0] += int(hk[1].valid.sum())
+        st4, n_bits, n_framed = fir_b4_deframer(x, nv, st4, what)
+        bits += n_bits
+        framed[1] += n_framed
+    check(framed == [frames, frames], f"deframer frames {framed}, B2 {frames}")
+    # the exact backend's blocks (TorchReceiver's block_len 1020)
+    st4 = (c.history, c.dpll, c.dpll, c.hdlc, c.hdlc)
+    bits_x = framed_x = 0
+    for b, off in enumerate(range(0, len(audio), CLI_BLOCK)):
+        blk = audio[off:off + CLI_BLOCK]
+        xb = np.zeros((1, CLI_BLOCK), dtype=np.int16)
+        xb[0, :len(blk)] = blk
+        st4, n_bits, n_framed = fir_b4_deframer(
+            torch.from_numpy(xb).to(dev), len(blk), st4,
+            f"exact backend's fixture block {b} (T {CLI_BLOCK}, n_valid "
+            f"{len(blk)})")
+        bits_x += n_bits
+        framed_x += n_framed
+    check((bits_x, framed_x) == (bits, frames),
+          f"at T={CLI_BLOCK}: {bits_x} bits, {framed_x} frame candidates; at "
+          f"T={KERNEL_BLOCK}: {bits}, {frames}")
+    print(f"[3 parity fixture] B2, B1, B3, B4 and the deframer (on B3's and "
+          f"on B4's codes) == plain, bitwise, on all "
           f"{len(n_valid)} chained blocks of the fixture at S=1 "
           f"T={KERNEL_BLOCK} (n_valid {n_valid[0]} x {len(n_valid) - 1}, "
-          f"then {n_valid[-1]}): {frames} frames, {bits} bits", flush=True)
-    return err2, err1, err3, err4
+          f"then {n_valid[-1]}): {frames} frames, {bits} bits; B4 and the "
+          f"deframer on sample codes also at the exact backend's T="
+          f"{CLI_BLOCK}, the same bits and frames", flush=True)
+    return err2, err1, err3, err4, err_h
 
 
 def phase_path_s(blocks, expected):
     """Path S: the pipelined streaming decoder through kernel B3 and the
-    plain deframer, at full width, over the first PATH_S_BLOCKS fleet
-    blocks (each takes its plain deframer ~17 s)."""
+    deframer kernel, at full width, over the first PATH_S_BLOCKS fleet
+    blocks.  Returns its wall time a block."""
     from gnuais_tpu_torch.runtime.streaming import PipelinedDecoder
     dec = PipelinedDecoder(FLEET_STREAMS, block_len=FLEET_BLOCK,
                            frame_slots=FLEET_SLOTS, fused_frontend=True,
@@ -769,23 +894,49 @@ def phase_path_s(blocks, expected):
     return wall / n_run
 
 
+def hdlc_bound(codes, form, cand, state):
+    """The deframer's bound (``card.bound_ms``): its bytes (the codes
+    read, the carry read and written, the candidate slots written), and
+    the integer operations this run's slots need: 10 a valid slot (the
+    hunt state's step, as roofline.CHAIN_OPS counts it) and 45 for each
+    bit a completed frame appended to the register (3 for each of 15
+    words)."""
+    import torch
+    from gnuais_tpu_torch import card
+    from gnuais_tpu_torch.ops import fused
+    _, valid, _ = fused._hdlc_slots_of(form, codes, None, None, None, 0)
+    new_state, c = cand
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in leaves((codes, state, new_state, c)))
+    appended = int((c.length[c.valid].to(torch.int64) + 22).sum())
+    ops = 10 * int(valid.sum()) + 45 * appended
+    return card.bound_ms(nbytes, (ops, card.INT32_TOPS))
+
+
 def phase_front_full(x0):
-    """B3 on the first fleet block and B4 on its exact FIR, at full size,
-    against their plain versions; their times, and the rest of Path S's
-    block: the plain deframer and the host drain."""
+    """B3 and the deframer on the first fleet block, B4 on its exact FIR,
+    at full size, against their plain versions (the deframer on B3's
+    group codes and on B4's sample codes); their times and bounds, and
+    Path S's split of one block: B3, the deframer and the candidates'
+    compaction, the host drain."""
     import torch
     from gnuais_tpu_torch.ops import demod, fir, fused
     from gnuais_tpu_torch.runtime.pipeline import BatchPipeline, init_carry
     x = torch.from_numpy(x0).cuda()
     c = init_carry(FLEET_STREAMS, "cuda")
     what = f"block 0 at S={FLEET_STREAMS} T={FLEET_BLOCK}"
-    args3 = (x, FLEET_BLOCK, c.history, c.dpll, 0)
-    ms3, k = device_ms(lambda: fused.frontend_fused(*args3))
-    plain3, p = host_ms(lambda: fused.frontend_fused_reference(*args3))
+    args3 = (x, FLEET_BLOCK, c.history, c.dpll)
+    ms3, (codes, h3, d3) = device_ms(lambda: fused.frontend_codes(*args3))
+    ms3w, k = device_ms(lambda: fused.frontend_fused(*args3, 0))
+    plain3, p = host_ms(lambda: fused.frontend_fused_reference(*args3, 0))
     err3 = compare(k, p, f"B3 {what}")
+    compare((*fused._group_slots(codes, 0), h3, d3), p,
+            f"B3's codes {what}")
     filtered, _ = fir.fir_exact(x, c.history)
-    ms4, k4 = device_ms(lambda: fused.dpll_fused(filtered, FLEET_BLOCK,
-                                                 c.dpll))
+    ms4, (scodes, d4) = device_ms(lambda: fused.dpll_codes(
+        filtered, FLEET_BLOCK, c.dpll))
+    ms4w, k4 = device_ms(lambda: fused.dpll_fused(filtered, FLEET_BLOCK,
+                                                  c.dpll))
     plain4, p4 = host_ms(lambda: fused.dpll_fused_reference(
         filtered, FLEET_BLOCK, c.dpll))
     err4 = compare(k4, p4, f"B4 {what}")
@@ -794,28 +945,73 @@ def phase_front_full(x0):
           f"{len(leaves(k4))} outputs ({int(k4[0].sum())} bits), bitwise",
           flush=True)
     n = FLEET_STREAMS * FLEET_BLOCK
-    bound3, by3 = bound((args3, k), FIR_FLOPS["vpu"] * n)
-    bound4, by4 = bound((filtered, c.dpll, k4), n)    # one compare a sample
-    print(f"[10 full block] B3 wrapper {ms3:.3f} ms (bound {bound3:.3f} ms by "
-          f"{by3}), B4 wrapper {ms4:.3f} ms (bound {bound4:.3f} ms by {by4}) "
+    bound3, by3 = bound((args3, codes, h3, d3), FIR_FLOPS["vpu"] * n)
+    bound4, by4 = bound((filtered, c.dpll, scodes, d4), n)  # a compare a sample
+    print(f"[10 full block] B3 frontend_codes {ms3:.3f} ms (bound "
+          f"{bound3:.3f} ms by {by3}; with the [S, T/4] returns of "
+          f"frontend_fused {ms3w:.3f} ms), B4 dpll_codes {ms4:.3f} ms "
+          f"(bound {bound4:.3f} ms by {by4}; dpll_fused {ms4w:.3f} ms) "
           f"(medians of 5, CUDA events); plain versions {plain3:.1f} ms and "
           f"{plain4:.1f} ms (one run each, host clock)", flush=True)
-    hdlc_ms, (_, frames) = host_ms(lambda: demod.hdlc_scan(
-        k[0], k[1], c.hdlc, demod.init_frames(FLEET_STREAMS, FLEET_SLOTS,
-                                              "cuda"), k[2]))
+    # the wrappers on the card routes launch no copy of the block: every
+    # device kernel of a call beside the hand-written one is short
+    for name, fn, kernel in (
+            ("B3 frontend_codes", lambda: fused.frontend_codes(*args3),
+             "frontend_kernel"),
+            ("B4 dpll_codes", lambda: fused.dpll_codes(
+                filtered, FLEET_BLOCK, c.dpll), "dpll_kernel")):
+        ms = device_kernels(fn)
+        mine = {k: v for k, v in ms.items() if kernel in k}
+        other = {k[:60]: round(v, 4) for k, v in ms.items() if kernel not in k}
+        check(len(mine) == 1, f"{name}: kernels {sorted(ms)}")
+        check(max(other.values(), default=0.0) < COPY_MS,
+              f"{name}: a kernel of {max(other.values())} ms beside "
+              f"{kernel}: {other}")
+        print(f"[10 full block] {name} on the device (torch.profiler): "
+              f"{kernel} {sum(mine.values()):.3f} ms; the {len(other)} other "
+              f"kernels each < {COPY_MS} ms, no copy of the block: {other}",
+              flush=True)
+    # the deframer on both kinds of codes, against its plain version
+    hdlc = {}
+    for form, cd in (("group", codes), ("sample", scodes)):
+        ms_h, kh = device_ms(lambda: fused.hdlc_fused(c.hdlc, cd, form))
+        plain_h, ph = host_ms(lambda: fused.hdlc_fused_reference(
+            c.hdlc, cd, form))
+        err_h = compare(kh, ph, f"deframer {form} {what}")
+        b_ms, b_by = hdlc_bound(cd, form, kh, c.hdlc)
+        hdlc[form] = dict(max_abs_err=err_h, ms=ms_h, plain_ms=plain_h,
+                          bound_ms=b_ms, bound_by=b_by, out=kh)
+        print(f"[10 full block] deframer on {form} codes "
+              f"[{cd.shape[0]}, {cd.shape[1]}]: == plain on all "
+              f"{len(leaves(kh))} outputs ({int(kh[1].valid.sum())} "
+              f"candidates), bitwise; {ms_h:.3f} ms (bound {b_ms:.4f} ms by "
+              f"{b_by}; median of 5, CUDA events), plain {plain_h:.1f} ms "
+              f"(one run, host clock)", flush=True)
+    compare(hdlc["group"]["out"], hdlc["sample"]["out"],
+            "deframer on B3's codes vs on B4's")
+
+    def deframe():
+        st, cand = fused.hdlc_fused(c.hdlc, codes, "group")
+        return demod.compact_candidates(
+            demod.init_frames(FLEET_STREAMS, FLEET_SLOTS, "cuda"), cand.valid,
+            cand.words, cand.length, cand.start, cand.end, lost2=cand.lost2,
+            over=cand.over)
+    hdlc_ms, frames = host_ms(deframe)
     pipe = BatchPipeline(FLEET_STREAMS, block_len=FLEET_BLOCK,
                          frame_slots=FLEET_SLOTS, device="cuda")
     drain_ms, per_stream = host_ms(lambda: pipe.drain(frames))
     n = sum(len(lst) for lst in per_stream)
-    print(f"[10 full block] path S split of {what}: B3 {ms3:.3f} ms, plain "
-          f"deframer hdlc_scan {hdlc_ms:.1f} ms, host drain {drain_ms:.1f} ms "
-          f"({n} frames); hdlc_scan is "
-          f"{100 * hdlc_ms / (ms3 + hdlc_ms + drain_ms):.1f} % of the three",
-          flush=True)
+    total = ms3 + hdlc_ms + drain_ms
+    print(f"[10 full block] path S split of {what}: B3 {ms3:.3f} ms, the "
+          f"deframer kernel and compaction {hdlc_ms:.3f} ms, host drain "
+          f"{drain_ms:.1f} ms ({n} frames); the drain is "
+          f"{100 * drain_ms / total:.1f} % of the three", flush=True)
+    del hdlc["group"]["out"], hdlc["sample"]["out"]
     return (dict(max_abs_err=err3, ms=ms3, plain_ms=plain3, bound_ms=bound3,
                  bound_by=by3),
             dict(max_abs_err=err4, ms=ms4, plain_ms=plain4, bound_ms=bound4,
-                 bound_by=by4))
+                 bound_by=by4),
+            hdlc["group"], hdlc["sample"])
 
 
 def phase_superblock(blocks, main_result, block_s):
@@ -1363,9 +1559,9 @@ def main() -> int:
     timed("2 build", phase_build)
     err2, err1 = timed("3 parity", phase_parity)
     err2l, err1l = timed("3 parity lobe", phase_parity_lobe)
-    err3, err4 = timed("3 parity B3/B4", phase_parity_front)
-    err2f, err1f, err3f, err4f = timed("3 parity fixture",
-                                       phase_parity_fixture)
+    err3, err4, err_h = timed("3 parity B3/B4/deframer", phase_parity_front)
+    err2f, err1f, err3f, err4f, err_hf = timed("3 parity fixture",
+                                               phase_parity_fixture)
     err2m, err1m = timed("3 parity mxu", phase_parity_mxu)
     edges = timed("3 parity edges", phase_parity_edges)
     err2, err1 = max(err2, edges["vpu"][0]), max(err1, edges["vpu"][1])
@@ -1403,20 +1599,30 @@ def main() -> int:
           f"B1 mxu {mxu_launches['B1']}, B2 mxu {mxu_launches['B2']}",
           flush=True)
 
-    fused.frontend_fused.launches = 0
+    fused.frontend_fused.launches = fused.hdlc_fused.launches = 0
     timed("9 path S", phase_path_s, blocks, expected)
     launches3 = fused.frontend_fused.launches
-    check(launches3 >= 2, f"kernel B3 launched {launches3} times on path S")
-    print(f"[9 path S] kernel B3 launches on path S: {launches3}", flush=True)
+    launches_h = fused.hdlc_fused.launches
+    check(launches3 == PATH_S_BLOCKS and launches_h == PATH_S_BLOCKS,
+          f"path S launched B3 {launches3} and the deframer {launches_h} "
+          f"times for {PATH_S_BLOCKS} blocks")
+    print(f"[9 path S] launches on path S: kernel B3 {launches3}, the "
+          f"deframer kernel {launches_h}", flush=True)
 
-    front3, front4 = timed("10 full block B3/B4", phase_front_full, blocks[0])
+    front3, front4, front_hg, front_hs = timed(
+        "10 full block B3/B4/deframer", phase_front_full, blocks[0])
     timed("11 superblock", phase_superblock, blocks, main_result, block_s)
 
-    fused.dpll_fused.launches = 0
+    fused.dpll_fused.launches = fused.hdlc_fused.launches = 0
     timed("12 path F", phase_end_to_end, "fast", "12 path F")
+    timed("12 path F exact", phase_end_to_end, "exact", "12 path F exact")
     launches4 = fused.dpll_fused.launches
-    check(launches4 > 0, f"kernel B4 launched {launches4} times on path F")
-    print(f"[12 path F] kernel B4 launches on path F: {launches4}",
+    check(launches4 > 0 and fused.hdlc_fused.launches == launches4,
+          f"path F and the exact backend launched B4 {launches4} and the "
+          f"deframer {fused.hdlc_fused.launches} times")
+    launches_hs = fused.hdlc_fused.launches
+    print(f"[12 path F] launches on path F and the exact backend: kernel B4 "
+          f"{launches4}, the deframer kernel {fused.hdlc_fused.launches}",
           flush=True)
 
     timed("13 probe", phase_probe, blocks[0])
@@ -1449,6 +1655,10 @@ def main() -> int:
          front3, max(err3, err3f)),
         ("dpll", "dpll.cu", "gnuais_tpu/ops/fused.py:129", launches4, front4,
          max(err4, err4f)),
+        ("hdlc_scan", "hdlc.cu", "gnuais_tpu/ops/demod.py:213", launches_h,
+         front_hg, max(err_h["group"], err_hf["group"])),
+        ("hdlc_scan_sample", "hdlc.cu", "gnuais_tpu/ops/demod.py:213",
+         launches_hs, front_hs, max(err_h["sample"], err_hf["sample"])),
         ("pipeline_fused_mxu", "pipeline_fused.cu",
          "gnuais_tpu/ops/fused.py:1031", mxu_launches["B2"], full_mxu["B2"],
          max(err2m, err_m["B2"])),

@@ -9,13 +9,15 @@ The file-decode slice of ``gnuais-tpu`` (``gnuais_tpu/cli.py``): message
 lines go to stdout in the reference format, the per-channel "Received
 correctly / wrong CRC / wrong size" summary to the log (stderr).  The
 backend comes from ``--backend`` or the config's ``backend`` directive:
-``exact`` runs the plain PyTorch chain in reference-sized blocks;
-``fast`` runs the exact FIR, the DPLL kernel and the plain deframer in
-1024-sample blocks with the CRC on the host; ``fused`` runs the fused
-kernel B2 and the candidate compaction in 1024-sample blocks with the
-CRC filter on the device, as the JAX package's ``--backend fused`` does;
-``golden`` runs the golden model (``golden.model``) on the host.  The
-device defaults to ``cuda``; ``cpu`` must be asked for.
+``exact`` runs the exact chain in reference-sized blocks (on the card:
+the exact FIR, the DPLL kernel B4 and the deframer kernel); ``fast``
+runs the same kernels in 1024-sample blocks with the CRC on the host;
+``fused`` runs the fused kernel B2 and the candidate compaction in
+1024-sample blocks with the CRC filter on the device, as the JAX
+package's ``--backend fused`` does; ``golden`` runs the golden model
+(``golden.model``) on the host.  The device defaults to ``cuda``;
+``cpu`` must be asked for.  A config that sets a directive of a path not
+ported yet (``UNHONOURED``) is refused with rc 1.
 """
 
 from __future__ import annotations
@@ -44,6 +46,29 @@ LOG_LEVELS = {"emerg": logging.CRITICAL, "alert": logging.CRITICAL,
 
 BACKENDS = ("exact", "fast", "fused", "golden")
 
+# Directives whose paths the port does not have yet, each with a test of
+# whether a config sets it: run_decode refuses such a config (log and
+# rc 1) rather than decode without the directive.
+UNHONOURED = (
+    ("inputformat iq", lambda c: c.input_format != "audio"),
+    ("streams", lambda c: c.streams > 1),
+    ("meshshape", lambda c: bool(c.meshshape)),
+    ("checkpoint", lambda c: c.checkpoint is not None),
+    ("uplink", lambda c: bool(c.uplinks)),
+    ("mysql_host", lambda c: c.mysql_host is not None),
+    ("mysql_db", lambda c: c.mysql_db is not None),
+    ("mysql_user", lambda c: c.mysql_user is not None),
+    ("mysql_password", lambda c: c.mysql_password is not None),
+    ("mysql_keepsmall", lambda c: c.mysql_keepsmall),
+    ("mysql_oldlimit", lambda c: c.mysql_oldlimit != 0),
+    ("dbpath", lambda c: c.db_path is not None),
+    ("statsinterval", lambda c: c.stats_interval > 0),
+    ("soundoutfile", lambda c: c.sound_out_file is not None),
+    ("serialport", lambda c: c.serial_port is not None),
+    ("cluster", lambda c: (c.cluster_coordinator is not None
+                           or c.cluster_nprocs > 0 or c.cluster_procid >= 0)),
+)
+
 
 def make_receiver_factory(cfg: Config, device: str):
     if cfg.backend not in BACKENDS:
@@ -71,6 +96,11 @@ def make_receiver_factory(cfg: Config, device: str):
 
 
 def run_decode(cfg: Config, device: str, out_stream=None) -> int:
+    for directive, is_set in UNHONOURED:
+        if is_set(cfg):
+            log.critical("The %s directive is not supported by this port "
+                         "yet.", directive)
+            return 1
     if not cfg.sound_in_file:
         log.critical("No sound file configured (live input is not "
                      "ported yet).")

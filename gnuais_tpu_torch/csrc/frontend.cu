@@ -1,4 +1,4 @@
-// Fused front-end kernel: exact FIR, DPLL with NRZI, 4-sample bit slots.
+// Kernel B3: exact FIR, DPLL with NRZI, 4-sample bit slots.
 //
 // Replaces the TPU kernel gnuais_tpu/ops/fused.py `_frontend_kernel`,
 // called through `frontend_fused`: raw int16 samples -> 36-tap FIR (one-
@@ -7,88 +7,142 @@
 // most one emission per group).  The filtered samples and the per-sample
 // bits never reach device memory.  Samples at index >= n_valid freeze the
 // DPLL and emit nothing; a group that straddles n_valid keeps only its
-// valid samples.  The HDLC deframer is not in this kernel: the caller
-// runs it over the slots (ops/demod.hdlc_scan).
+// valid samples, and the groups past it are 0.  The HDLC deframer is not
+// in this kernel: the deframer kernel (hdlc.cu) reads its codes as they
+// are written.
 //
-// What bounds it on an H100: the same per-stream chain as the fused
-// kernel (pipeline_compact.cu) without the deframer: 36 dependent float
-// adds and ~10 integer ops of DPLL per sample, no parallelism inside the
-// stream, so it is latency-bound per thread.  At 4096 streams the grid is
-// 32 blocks of 128 threads: 32 of the 132 SMs busy.  A block of 49,152
-// samples reads 403 MB of int16 and writes 50 MB of codes.
-// Design: one thread per stream, all state in registers (the 36-float
-// window shifted with static indices, the DPLL), the step functions of
-// pipeline_step.cuh (the FIR rounds each product and partial sum once, no
-// FMA, subnormals kept).  Input and output are time-major ([T, S] and
-// [T/4, S]) so that a warp's loads and stores at one time step are
-// neighbouring.  The codes are uint8.  The wrapper turns them into the
-// [S, T/4] gbits/gvalid/gpos of the plain version with one transpose copy
-// of the codes (a read and a write of 50 MB) and a few elementwise passes
-// over [S, T/4].
+// What bounds it on an H100: the same per-stream chain as kernels B1/B2
+// (pipeline_kernel.cuh) without the deframer, ~10 dependent integer
+// operations of DPLL a sample (R1: 11 ns a step, 0.55 ms for 49,152
+// samples); the FIR's 71 float operations a sample and the loads do not
+// depend on it.  A block of 4096 x 49,152 samples reads 403 MB of int16
+// and writes 50 MB of codes.
+// Design: the body of B1/B2 with another consumer.  Per 32 streams, P = 3
+// producer warps (pipeline_producer<Fir::kExact>) copy each 32-sample
+// chunk's raw window of the row-major [S, pitch] block, read in place,
+// and filter it into a ring in shared memory (pipeline_ring.cuh); the
+// consumer warp, one lane a stream, runs only dpll_step and the group
+// reduce over the ring's chunks and writes the codes time-major,
+// [T/4, S], a warp's 32 bytes of one group side by side, as the
+// deframer reads them.  Blocks of 128 threads, ceil(S / 32) of them,
+// 30,272 bytes of dynamic shared memory each.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "pipeline_step.cuh"
+#include "pipeline_kernel.cuh"
 
 namespace {
 
 using namespace gnuais;
 
-__global__ void __launch_bounds__(128) frontend_kernel(
-    const int16_t* __restrict__ x,        // [T, S] raw samples
-    const float* __restrict__ hist,       // [S, 36] FIR history
-    const int32_t* __restrict__ dpll_in,  // [3, S]: pll, prev, lastbit
-    uint8_t* __restrict__ codes,          // [T/4, S]
-    int32_t* __restrict__ dpll_out,       // [3, S]
-    int S, int T, int n_valid) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
+constexpr Fir kFir = Fir::kExact;
 
-  float win[kFirLen];
+// The consumer warp: stream s's DPLL over the ring's chunks, one code a
+// group into codes[g * S + s].  A lane past the last stream takes part in
+// the barriers only.
+__device__ __forceinline__ void frontend_consumer(const PipelineArgs& a,
+                                                  uint8_t* codes, Ring& ring,
+                                                  int s, int nv, int n_chunks) {
+  const bool live = s < a.S;
+  DpllRegs d{0, 0, 0};
+  if (live) d = DpllRegs{a.dpll_in[s], a.dpll_in[a.S + s], a.dpll_in[2 * a.S + s]};
+  ring_consume(ring, n_chunks, [&](int t0, const float* f) {
+    if (!live) return;
+    float next[4];
 #pragma unroll
-  for (int i = 0; i < kFirLen; ++i) win[i] = hist[(size_t)s * kFirLen + i];
-  DpllRegs d{dpll_in[s], dpll_in[S + s], dpll_in[2 * S + s]};
-
-  const int nv = n_valid < T ? n_valid : T;   // samples past n_valid freeze
-  const int n_groups = nv > 0 ? (nv + 3) / 4 : 0;
-  const int all_groups = T / 4;
-  for (int g = 0; g < n_groups; ++g) {
-    uint8_t code = 0;
+    for (int k = 0; k < 4; ++k) next[k] = f[k * 32];
+    if (t0 + kChunk <= nv) {
+      // a whole chunk of valid samples, without the per-sample guards
+      // of the last chunk
+#pragma unroll 1
+      for (int q = 0; q < kChunk / 4; ++q) {
+        float cur[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int t = 4 * g + k;
-      if (t < nv) {
-        const float f = fir_exact(win);
+        for (int k = 0; k < 4; ++k) cur[k] = next[k];
+        if (q + 1 < kChunk / 4) {
 #pragma unroll
-        for (int i = 0; i < kFirLen - 1; ++i) win[i] = win[i + 1];
-        win[kFirLen - 1] = static_cast<float>(x[(size_t)t * S + s]);
-        int32_t bit;
-        if (dpll_step(d, f, &bit)) code |= static_cast<uint8_t>(8 | (bit << 2) | k);
+          for (int k = 0; k < 4; ++k) next[k] = f[(4 * q + 4 + k) * 32];
+        }
+        uint32_t code = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          int32_t bit;
+          const bool emit = dpll_step(d, cur[k], &bit);
+          code |= emit ? 8u | (static_cast<uint32_t>(bit) << 2) |
+                             static_cast<uint32_t>(k)
+                       : 0u;
+        }
+        codes[(size_t)(t0 / 4 + q) * a.S + s] = static_cast<uint8_t>(code);
       }
+      return;
     }
-    codes[(size_t)g * S + s] = code;
-  }
-  for (int g = n_groups; g < all_groups; ++g) codes[(size_t)g * S + s] = 0;
+#pragma unroll 1
+    for (int q = 0; q < kChunk / 4; ++q) {
+      const int g = t0 / 4 + q;
+      if (4 * g >= nv) break;
+      float cur[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cur[k] = next[k];
+      if (q + 1 < kChunk / 4) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) next[k] = f[(4 * q + 4 + k) * 32];
+      }
+      uint32_t code = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int32_t bit;
+        if (4 * g + k < nv && dpll_step(d, cur[k], &bit))
+          code |= 8u | (static_cast<uint32_t>(bit) << 2) | static_cast<uint32_t>(k);
+      }
+      codes[(size_t)g * a.S + s] = static_cast<uint8_t>(code);
+    }
+  });
+  if (!live) return;
+  for (int g = (nv + 3) / 4; g < a.T / 4; ++g) codes[(size_t)g * a.S + s] = 0;
+  a.dpll_out[s] = d.pll;
+  a.dpll_out[a.S + s] = d.prev;
+  a.dpll_out[2 * a.S + s] = d.lastbit;
+}
 
-  dpll_out[s] = d.pll;
-  dpll_out[S + s] = d.prev;
-  dpll_out[2 * S + s] = d.lastbit;
+__global__ void __launch_bounds__(kPipelineThreads<kFir>, kMinBlocks<kFir>)
+frontend_kernel(const PipelineArgs a, uint8_t* codes, bool vec) {
+  auto& sh = *reinterpret_cast<RingShared<kProducers<kFir>>*>(block_shared());
+  ring_init(sh.ring);
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  const int s0 = blockIdx.x * kChunk;
+  const int s = s0 + threadIdx.x % 32;
+  const int nv = a.n_valid < a.T ? (a.n_valid > 0 ? a.n_valid : 0) : a.T;
+  const int n_chunks = (nv + kChunk - 1) / kChunk;
+  if (warp == 0) {
+    frontend_consumer(a, codes, sh.ring, s, nv, n_chunks);
+    return;
+  }
+  const RingInput in{a.x, a.hist, a.S, a.T, a.pitch, true, vec};
+  const float* hist = s < a.S ? a.hist + (size_t)s * kFirLen : nullptr;
+  pipeline_producer<kFir>(sh, in, s0, n_chunks, warp - 1, hist);
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError(), so a
-// refused launch is reported to the caller.  T % 4 == 0.
+// refused launch is reported to the caller.  x: row-major [S, pitch]
+// int16, T % 4 == 0; codes: [T/4, S] uint8.
 extern "C" int gnuais_frontend(const void* x, const void* hist,
                                const void* dpll_in, void* codes,
                                void* dpll_out, int S, int T, int n_valid,
-                               void* stream) {
-  constexpr int kThreads = 128;
-  const int blocks = (S + kThreads - 1) / kThreads;
-  frontend_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                               int pitch, void* stream) {
+  constexpr size_t smem = gnuais::pipeline_shared_bytes<kFir>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gnuais::PipelineArgs a{
       static_cast<const int16_t*>(x), static_cast<const float*>(hist),
-      static_cast<const int32_t*>(dpll_in), static_cast<uint8_t*>(codes),
-      static_cast<int32_t*>(dpll_out), S, T, n_valid);
+      static_cast<const int32_t*>(dpll_in), nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, nullptr, nullptr, static_cast<int32_t*>(dpll_out),
+      nullptr, nullptr, S, T, n_valid, 0, 0, 0, 0, 1, pitch};
+  const int blocks = (S + gnuais::kChunk - 1) / gnuais::kChunk;
+  frontend_kernel<<<blocks, gnuais::kPipelineThreads<kFir>, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<uint8_t*>(codes), gnuais::ring_vec_ok(x, pitch));
   return static_cast<int>(cudaGetLastError());
 }

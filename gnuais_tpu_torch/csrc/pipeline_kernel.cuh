@@ -123,10 +123,11 @@ struct StreamRegs {
   int32_t count, lost2, over, chunk_count;
 };
 
-__device__ __forceinline__ void load_carry(const PipelineArgs& a, int s,
-                                           StreamRegs& r) {
+// The deframer's carry (HDLC state and register) and zeroed counters;
+// also the whole carry of the deframer kernel (hdlc.cu).
+__device__ __forceinline__ void load_hdlc_carry(const PipelineArgs& a, int s,
+                                                StreamRegs& r) {
   const int S = a.S;
-  r.d = DpllRegs{a.dpll_in[s], a.dpll_in[S + s], a.dpll_in[2 * S + s]};
   r.h.state = a.hdlc_in[s];
   r.h.last = a.hdlc_in[S + s];
   r.h.ap = a.hdlc_in[2 * S + s];
@@ -139,6 +140,13 @@ __device__ __forceinline__ void load_carry(const PipelineArgs& a, int s,
   for (int w = 0; w < kRegWords; ++w)
     r.h.reg[w] = static_cast<uint32_t>(a.reg_in[(size_t)s * kRegWords + w]);
   r.count = r.lost2 = r.over = r.chunk_count = 0;
+}
+
+__device__ __forceinline__ void load_carry(const PipelineArgs& a, int s,
+                                           StreamRegs& r) {
+  const int S = a.S;
+  r.d = DpllRegs{a.dpll_in[s], a.dpll_in[S + s], a.dpll_in[2 * S + s]};
+  load_hdlc_carry(a, s, r);
 }
 
 // Group g's bit slot (gval: a bit was emitted, gbit at sample gpos)
@@ -177,15 +185,12 @@ __device__ __forceinline__ void slot_step(const PipelineArgs& a, int s,
 }
 
 template <bool kCandidates>
-__device__ __forceinline__ void store_carry(const PipelineArgs& a, int s,
-                                            const StreamRegs& r) {
+__device__ __forceinline__ void store_hdlc_carry(const PipelineArgs& a, int s,
+                                                 const StreamRegs& r) {
   const int S = a.S;
   if constexpr (!kCandidates) a.count_raw[s] = r.count;
   a.lost2[s] = r.lost2;
   a.over[s] = r.over;
-  a.dpll_out[s] = r.d.pll;
-  a.dpll_out[S + s] = r.d.prev;
-  a.dpll_out[2 * S + s] = r.d.lastbit;
   a.hdlc_out[s] = r.h.state;
   a.hdlc_out[S + s] = r.h.last;
   a.hdlc_out[2 * S + s] = r.h.ap;
@@ -197,6 +202,16 @@ __device__ __forceinline__ void store_carry(const PipelineArgs& a, int s,
 #pragma unroll
   for (int w = 0; w < kRegWords; ++w)
     a.reg_out[(size_t)s * kRegWords + w] = static_cast<int32_t>(r.h.reg[w]);
+}
+
+template <bool kCandidates>
+__device__ __forceinline__ void store_carry(const PipelineArgs& a, int s,
+                                            const StreamRegs& r) {
+  const int S = a.S;
+  a.dpll_out[s] = r.d.pll;
+  a.dpll_out[S + s] = r.d.prev;
+  a.dpll_out[2 * S + s] = r.d.lastbit;
+  store_hdlc_carry<kCandidates>(a, s, r);
 }
 
 // One sample's filtered value f, at t, through the DPLL into its group's

@@ -131,6 +131,15 @@ __device__ __forceinline__ void copy_wait() {
 #endif
 }
 
+// Waits until at most kPending of this thread's committed copy groups
+// are still in flight (the host build's copies are done at once).
+template <int kPending>
+__device__ __forceinline__ void copy_wait_pending() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
+#endif
+}
+
 // ---- the ring -------------------------------------------------------------
 
 struct Ring {

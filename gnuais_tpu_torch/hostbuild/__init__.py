@@ -39,7 +39,8 @@ _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE.parent / "csrc"
 BUILD_DIR = _HERE.parents[1] / "build" / "hostbuild"
 # the kernel sources the host build covers
-SOURCES = ("pipeline_compact.cu", "pipeline_fused.cu", "fir_probe.cu")
+SOURCES = ("pipeline_compact.cu", "pipeline_fused.cu", "fir_probe.cu",
+           "frontend.cu", "dpll.cu", "hdlc.cu")
 GXX_FLAGS = ["-std=c++20", "-O1", "-ffp-contract=off", "-pthread", "-fPIC",
              "-shared", "-DGNUAIS_HOST_BUILD"]
 
@@ -100,7 +101,8 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             for name in ("gnuais_pipeline_compact", "gnuais_pipeline_fused",
-                         "gnuais_fir_probe"):
+                         "gnuais_fir_probe", "gnuais_frontend", "gnuais_dpll",
+                         "gnuais_hdlc"):
                 fn = getattr(lib, name)
                 fn.argtypes = _build._ENTRIES[name]
                 fn.restype = ctypes.c_int

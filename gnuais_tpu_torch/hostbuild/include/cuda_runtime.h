@@ -36,6 +36,10 @@ struct int4 {
   int x, y, z, w;
 };
 
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };

@@ -33,8 +33,9 @@ _ENTRIES = {
     "gnuais_pipeline_compact": [_P] * 13 + [_I] * 10 + [_P],
     "gnuais_pipeline_fused": [_P] * 13 + [_I] * 10 + [_P],
     "gnuais_pipeline_shape": [_I, _P],
-    "gnuais_frontend": [_P] * 5 + [_I] * 3 + [_P],
-    "gnuais_dpll": [_P] * 4 + [_I] * 3 + [_P],
+    "gnuais_frontend": [_P] * 5 + [_I] * 4 + [_P],
+    "gnuais_dpll": [_P] * 4 + [_I] * 4 + [_P],
+    "gnuais_hdlc": [_P] * 13 + [_I] * 9 + [_P],
     "gnuais_fir_probe": [_P] * 3 + [_I] * 3 + [_P],
     "gnuais_roofline_chain": [_P] * 4 + [_I] * 3 + [_P],
     "gnuais_roofline_stream": [_P] * 6 + [_I] * 4 + [_P],

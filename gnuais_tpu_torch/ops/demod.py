@@ -4,8 +4,11 @@
 Bit-identical to the reference's per-sample loops (receiver.c:109-135
 DPLL/slicer/NRZI, protodec.c:988-1122 HDLC), vectorised over a
 ``streams`` axis.  Time stays a Python loop over [S]-wide tensor ops:
-this is the plain PyTorch version that the fused CUDA kernel
-(``ops/fused.py``) is held against, and the port's CPU decode.
+this is the plain PyTorch version that the CUDA kernels (``ops/fused.py``)
+are held against, and the port's CPU decode.  On a CUDA tensor
+``hdlc_scan_candidates`` (and so ``hdlc_scan``) launches the deframer
+kernel (``fused.hdlc_fused``, ``csrc/hdlc.cu``) instead of its plain
+version ``hdlc_scan_candidates_reference``.
 
 torch has no ``<<``, ``>>`` or comparisons for ``uint32`` on the CPU, so
 the 15x32-bit register words are carried as ``int32`` holding the same
@@ -300,7 +303,27 @@ def hdlc_scan_candidates(bitrows: torch.Tensor, slot_valid: torch.Tensor,
 
     bitrows/slot_valid/pos_rows: [S, M]; invalid slots freeze the state.
     The slot axis is padded to a multiple of HDLC_CHUNK.  lost2 counts
-    wrong-size stops whose position lies in [lost2_lo, lost2_hi)."""
+    wrong-size stops whose position lies in [lost2_lo, lost2_hi).
+
+    A CUDA tensor launches the deframer kernel (``fused.hdlc_fused``); a
+    CPU tensor runs the plain version, ``hdlc_scan_candidates_reference``."""
+    from . import fused
+    if fused.on_card(bitrows):
+        return fused.hdlc_fused(state, bitrows=bitrows, slot_valid=slot_valid,
+                                pos_rows=pos_rows, lost2_lo=lost2_lo,
+                                lost2_hi=lost2_hi)
+    return hdlc_scan_candidates_reference(bitrows, slot_valid, state,
+                                          pos_rows, lost2_lo, lost2_hi)
+
+
+def hdlc_scan_candidates_reference(
+        bitrows: torch.Tensor, slot_valid: torch.Tensor, state: HdlcState,
+        pos_rows: Optional[torch.Tensor] = None,
+        lost2_lo: Optional[int] = None, lost2_hi: Optional[int] = None
+        ) -> Tuple[HdlcState, Candidates]:
+    """The plain version of ``hdlc_scan_candidates``, on any device: a
+    Python loop over the slots, one [S]-wide step each, which syncs with
+    the host once a slot (``bool(emit.any())``) on a CUDA tensor."""
     lo = -2**31 if lost2_lo is None else int(lost2_lo)
     hi = 2**31 - 1 if lost2_hi is None else int(lost2_hi)
     if pos_rows is None:

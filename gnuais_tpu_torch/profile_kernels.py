@@ -6,8 +6,10 @@
 
 The wrappers are B1 (``pipeline_fused_compact``, 32 frame slots) and B2
 (``pipeline_fused``), each with the exact, the lobe and the mxu FIR, B3
-(``frontend_fused``) and B4 (``dpll_fused``, on the exact FIR of the
-same block).  The block is ``captures.mixed`` of 32 rows, repeated over
+(``frontend_fused``, and ``frontend_codes``, the kernel as the card
+route calls it) and B4 (``dpll_fused`` and ``dpll_codes``, on the exact
+FIR of the same block), and the deframer (``hdlc_fused``) on B3's group
+codes and on B4's sample codes of the block.  The block is ``captures.mixed`` of 32 rows, repeated over
 the streams.  Each wrapper runs once to warm up (and to build the
 kernels), then in the order listed and back again, ``rounds`` times,
 each call under a profiler of its own.  For each wrapper the script
@@ -41,6 +43,8 @@ def wrappers(n_streams: int, block: int):
                          ).cuda()
     c = init_carry(n_streams, "cuda")
     filtered, _ = fir.fir_exact(x, c.history)
+    group, _, _ = fused.frontend_codes(x, block, c.history, c.dpll)
+    sample, _ = fused.dpll_codes(filtered, block, c.dpll)
     return {
         "B1 pipeline_fused_compact": lambda: fused.pipeline_fused_compact(
             x, block, c.history, c.dpll, c.hdlc, frame_slots=32),
@@ -58,7 +62,13 @@ def wrappers(n_streams: int, block: int):
             x, block, c.history, c.dpll, c.hdlc, fir_mode="mxu"),
         "B3 frontend_fused": lambda: fused.frontend_fused(
             x, block, c.history, c.dpll),
+        "B3 frontend_codes": lambda: fused.frontend_codes(
+            x, block, c.history, c.dpll),
         "B4 dpll_fused": lambda: fused.dpll_fused(filtered, block, c.dpll),
+        "B4 dpll_codes": lambda: fused.dpll_codes(filtered, block, c.dpll),
+        "hdlc_fused group": lambda: fused.hdlc_fused(c.hdlc, group, "group"),
+        "hdlc_fused sample": lambda: fused.hdlc_fused(c.hdlc, sample,
+                                                      "sample"),
     }
 
 

@@ -112,7 +112,7 @@ def _chain_tail(filtered: torch.Tensor, hdlc: bool, shift: bool,
     if not hdlc:
         return st.pll, h0
     gbits, gvalid, _ = demod.group_reduce_bits(emit, bits)
-    h, _ = demod.hdlc_scan_candidates(
+    h, _ = demod.hdlc_scan_candidates_reference(
         gbits, gvalid, h0, pos.to(_I32)[None, :].expand(s, -1))
     if not shift:
         h = h._replace(shiftreg=h0.shiftreg)
@@ -122,7 +122,7 @@ def _chain_tail(filtered: torch.Tensor, hdlc: bool, shift: bool,
 def chain_reference(seed: torch.Tensor, steps: int,
                     mode: str) -> Tuple[torch.Tensor, HdlcState]:
     """The plain version of ``chain``: ``demod.dpll_scan`` over the
-    LCG's signs and ``demod.hdlc_scan_candidates`` over the slots at
+    LCG's signs and ``demod.hdlc_scan_candidates_reference`` over the slots at
     spos = the group's last step.  Same arguments and returns."""
     _check_chain(seed, steps, mode)
     n = steps // UNROLL * UNROLL
@@ -135,7 +135,8 @@ def stream_reference(x: torch.Tensor, mode: str, passes: int,
                      dummy: Optional[torch.Tensor] = None):
     """The plain version of ``stream``: the input repeated ``passes``
     times along time, through ``fir.fir_lobe`` (with "fir", from a zero
-    history), ``demod.dpll_scan`` and ``demod.hdlc_scan_candidates`` at
+    history), ``demod.dpll_scan`` and
+    ``demod.hdlc_scan_candidates_reference`` at
     spos = the group's last sample within its 512-sample chunk.  Same
     arguments and returns."""
     _check_stream(x, mode, passes, dummy)

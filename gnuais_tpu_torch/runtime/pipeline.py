@@ -13,11 +13,15 @@ of precedence:
   candidates compacted by ``demod.compact_candidates``;
   each fused branch optionally followed by the on-device CRC filter;
 - ``fused_frontend``: kernel B3 (FIR, DPLL, bit slots), then the
-  deframer ``demod.hdlc_scan``;
-- ``fast_dpll``: the FIR, kernel B4, the group reduce and
-  ``hdlc_scan``;
-- otherwise the exact chain in plain PyTorch (``exact_fir=False`` takes
-  the convolution FIR ``fir.fir_conv`` in both of these).
+  deframer;
+- ``fast_dpll``: the FIR, kernel B4, the group reduce and the deframer;
+- otherwise the exact chain (``exact_fir=False`` takes the convolution
+  FIR ``fir.fir_conv`` in both of these).
+On the card these three run as kernels end to end (``_card_route``):
+B3's or B4's codes go straight to the deframer kernel (``fused.
+hdlc_fused``), and the exact chain is the ``fast_dpll`` route, since B4
+is ``dpll_scan`` bit for bit on the emitted bits; then
+``demod.compact_candidates``.  On the CPU they run the plain versions.
 
 ``decode_superblock`` chains K blocks through ``decode_block``.  The
 host unpacks the frame snapshots, checks CRC-16 and hands the payloads
@@ -37,6 +41,7 @@ from ..golden.model import Frame, crc_check_and_extract
 from ..device import resolve_device
 from ..ops import crc as crc_ops
 from ..ops import demod, fir
+from ..ops import fused
 from ..ops.fused import (bit_slots, frontend_fused, pipeline_fused,
                          pipeline_fused_compact)
 
@@ -106,6 +111,31 @@ def _fused_step(samples, n_valid, carry, frame_slots, block_base, fir_mode,
     return PipelineCarry(history, dpll_state, hdlc_state), frames
 
 
+def _card_route(samples, n_valid, carry, frame_slots, block_base,
+                fused_frontend, exact_fir, lost2_lo, lost2_hi):
+    """The unfused branches of ``decode_block`` on the card, kernels end
+    to end: B3 (``fused_frontend``) or the FIR and B4, their codes read
+    by the deframer kernel as they were written, then the candidates'
+    compaction.  No step loops on the host.  Returns (carry', frames)."""
+    if fused_frontend:
+        codes, history, dpll_state = fused.frontend_codes(
+            samples, n_valid, carry.history, carry.dpll)
+        form = "group"
+    else:
+        fir_fn = fir.fir_exact if exact_fir else fir.fir_conv
+        filtered, history = fir_fn(samples, carry.history, n_valid=n_valid)
+        codes, dpll_state = fused.dpll_codes(filtered, n_valid, carry.dpll)
+        form = "sample"
+    hdlc_state, c = fused.hdlc_fused(carry.hdlc, codes, form,
+                                     block_base=block_base, lost2_lo=lost2_lo,
+                                     lost2_hi=lost2_hi)
+    frames = demod.compact_candidates(
+        demod.init_frames(samples.shape[0], frame_slots, samples.device),
+        c.valid, c.words, c.length, c.start, c.end, lost2=c.lost2,
+        over=c.over)
+    return PipelineCarry(history, dpll_state, hdlc_state), frames
+
+
 def decode_block(samples: torch.Tensor, n_valid: int, carry: PipelineCarry,
                  frame_slots: int = 32, block_base: int = 0,
                  fast_dpll: bool = False, fused_frontend: bool = False,
@@ -141,10 +171,12 @@ def decode_block(samples: torch.Tensor, n_valid: int, carry: PipelineCarry,
     into 4-sample bit slots by ``ops.fused.frontend_fused``
     (fused_frontend) or by the FIR (``fir_exact``, or ``fir_conv`` when
     exact_fir is False) and ``dpll_fused`` (fast_dpll) or ``dpll_scan``
-    (the default), and ``demod.hdlc_scan`` deframes them.  Each kernel
-    wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
-    version for a CPU tensor; every branch but the mxu, lobe and
-    convolution FIRs gives the exact chain's result bit for bit.
+    (the default), and ``demod.hdlc_scan`` deframes them; on the card
+    these run as B3 or B4 and the deframer kernel (``_card_route``).
+    Each kernel wrapper launches its CUDA kernel for a CUDA tensor and
+    runs its plain version for a CPU tensor; every branch but the mxu,
+    lobe and convolution FIRs gives the exact chain's result bit for
+    bit.
 
     The JAX function's TPU tiling knobs are not ported."""
     if mxu_fir and not fused_pipeline:
@@ -172,6 +204,11 @@ def decode_block(samples: torch.Tensor, n_valid: int, carry: PipelineCarry,
             torch.zeros((s,), dtype=torch.int32, device=samples.device)
         return carry, frames, peak
     s = samples.shape[0]
+    if fused.on_card(samples):
+        carry, frames = _card_route(samples, n_valid, carry, frame_slots,
+                                    block_base, fused_frontend, exact_fir,
+                                    lost2_lo, lost2_hi)
+        return carry, frames, fir.block_peak(samples)
     if fused_frontend:
         slots = frontend_fused(samples, n_valid, carry.history, carry.dpll,
                                block_base)

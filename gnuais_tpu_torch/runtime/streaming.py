@@ -16,11 +16,9 @@ copies; the drain waits on that event and reads the host copies, so
 draining block k never waits for block k+1's step.  On ``cpu`` (asked
 for explicitly) there are no pinned buffers or events.
 
-A step that syncs the host itself (the plain deframer ``hdlc_scan``
-behind ``fused_frontend``, ``fast_dpll`` and the exact chain) runs
-to its end inside ``submit``; only the fused kernel's step
-(``fused_pipeline``) is left running on the card when ``submit``
-returns.
+On the card every step (``fused_pipeline``, and ``fused_frontend``,
+``fast_dpll`` and the exact chain, which run B3 or B4 and the deframer
+kernel there) is left running when ``submit`` returns.
 """
 
 from __future__ import annotations

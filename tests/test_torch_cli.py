@@ -75,3 +75,69 @@ def test_cli_default_device_is_cuda():
     assert res.returncode != 0
     assert res.stdout == ""
     assert "torch.cuda.is_available() is False" in res.stderr
+
+
+# (directive as the log names it, its config line; None: set on the
+# Config itself, as the JAX package's --cluster flag does)
+REFUSED = {
+    "inputformat iq": "inputformat iq",
+    "streams": "streams 4",
+    "meshshape": "meshshape 2 4",
+    "checkpoint": "checkpoint /nonexistent/ckpt",
+    "uplink": "uplink test json http://localhost:1/",
+    "mysql_host": "mysql_host localhost",
+    "mysql_db": "mysql_db ais",
+    "mysql_user": "mysql_user ais",
+    "mysql_password": "mysql_password secret",
+    "mysql_keepsmall": "mysql_keepsmall",
+    "mysql_oldlimit": "mysql_oldlimit 3600",
+    "dbpath": "dbpath /nonexistent/ais.sqlite",
+    "statsinterval": "statsinterval 10m",
+    "soundoutfile": "soundoutfile /nonexistent/out.raw",
+    "serialport": "serialport /dev/ttyFAKE",
+    "cluster": None,
+}
+
+
+@pytest.mark.parametrize("directive", sorted(REFUSED))
+def test_cli_refuses_unhonoured_directive(directive, tmp_path, caplog):
+    """A config that sets a directive whose path is not ported is refused
+    before anything is decoded: rc 1, the directive named in the log,
+    no message line."""
+    from gnuais_tpu_torch import cli
+    from gnuais_tpu_torch.config import read_config
+    assert directive in {name for name, _ in cli.UNHONOURED}
+    conf = tmp_path / "gnuais.conf"
+    conf.write_text("soundchannels mono\n" + (REFUSED[directive] or "") + "\n")
+    cfg = read_config(str(conf))
+    if REFUSED[directive] is None:
+        cfg.cluster_coordinator, cfg.cluster_nprocs = "localhost:1234", 2
+    cfg.sound_in_file = str(FIX / "standard_capture.raw")
+    out = []
+
+    class Sink:
+        def write(self, text):
+            out.append(text)
+
+        def flush(self):
+            pass
+
+    with caplog.at_level("CRITICAL", logger="gnuais"):
+        rc = cli.run_decode(cfg, "cpu", out_stream=Sink())
+    assert rc == 1
+    assert directive in caplog.text
+    assert out == []
+
+
+def test_cli_refuses_iq_input_in_a_subprocess(tmp_path):
+    """The reproduction of the fault: float32 IQ bytes behind
+    ``inputformat iq`` are no longer decoded as int16 audio."""
+    conf = tmp_path / "iq.conf"
+    conf.write_text("soundchannels mono\ninputformat iq\n")
+    iq = tmp_path / "x.iq"
+    iq.write_bytes(bytes(8 * 4800))
+    res = _cli("--device", "cpu", "--backend", "exact", "-c", str(conf),
+               "-l", str(iq))
+    assert res.returncode == 1
+    assert res.stdout == ""
+    assert "inputformat iq" in res.stderr

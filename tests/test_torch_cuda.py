@@ -540,3 +540,151 @@ def test_pipelined_decoder_on_card_matches_cpu(cuda, flags):
                      for r in got], [vars(c) for c in dec.counters]))
     assert res[0] == res[1]
     assert sum(c["receivedframes"] for c in res[0][1]) > s
+
+
+# the deframer kernel (csrc/hdlc.cu): (maker, S, T, n_valid of each
+# chained block, block base, lost2 window, odd-pitch views)
+HDLC_CASES = {
+    "S1_T1000": (captures.mixed, 1, 1000, (1000, 0, 1000), 0, None, False),
+    "S37_T1000_short": (captures.mixed, 37, 1000, (1000, 20, 667), 77, None,
+                        False),
+    "S33_T1024_straddle": (captures.mixed, 33, 1024, (1024,) * 3,
+                           2**31 - 1500, None, False),
+    "S40_T8192": (captures.noisy_frames, 40, 8192, (8192 - 333,), 5, None,
+                  False),
+    "S256_lost2_window": (captures.wrong_size_and_crc, 256, T, (T,), 1000,
+                          (1000 + 600, 1000 + 3000), False),
+    "S64_minimal_frames": (captures.minimal_frames, 64, T, (T, 2001), 0, None,
+                           False),
+    "S37_odd_pitch": (captures.mixed, 37, 1000, (1000, 500), 3, None, True),
+}
+
+
+def _odd(x: torch.Tensor) -> torch.Tensor:
+    wide = torch.zeros((x.shape[0], x.shape[1] + 5), dtype=x.dtype,
+                       device=x.device)
+    wide[:, 3:3 + x.shape[1]] = x
+    return wide[:, 3:3 + x.shape[1]]
+
+
+@pytest.mark.parametrize("form", ["group", "sample", "slots"])
+@pytest.mark.parametrize("case", sorted(HDLC_CASES))
+def test_hdlc_kernel_matches_plain(cuda, case, form):
+    """The deframer kernel over chained blocks of B3's group codes, B4's
+    sample codes or [S, M] slots against its plain version, every
+    candidate, counter and carry leaf bitwise; B3 and B4 against theirs
+    on the way."""
+    build, s, t, nvs, base0, window, odd = HDLC_CASES[case]
+    view = _odd if odd else (lambda v: v)
+    x = build(s, len(nvs) * t, seed=s + t)
+    lo, hi = window or (None, None)
+    c0 = init_carry(s, cuda)
+    kh, kd, fh, kd4, kq, pq = (c0.history, c0.dpll, c0.history, c0.dpll,
+                               c0.hdlc, c0.hdlc)
+    for b, nv in enumerate(nvs):
+        xb = torch.from_numpy(np.ascontiguousarray(
+            x[:, b * t:(b + 1) * t])).to(cuda)
+        base = base0 + b * t
+        p = fused.frontend_fused_reference(xb, nv, kh, kd, base)
+        codes, kh, kd = fused.frontend_codes(view(xb), nv, kh, kd)
+        _assert_same((*fused._group_slots(codes, base), kh, kd), p)
+        filtered, fh = fir.fir_exact(xb, fh, n_valid=nv)
+        p4 = fused.dpll_fused_reference(filtered, nv, kd4)
+        scodes, kd4 = fused.dpll_codes(view(filtered), nv, kd4)
+        ct = scodes.t()
+        _assert_same((ct >= 2, (ct & 1).to(torch.int32), kd4), p4)
+        if form == "slots":
+            kw = dict(bitrows=p[0], slot_valid=p[1], pos_rows=p[2])
+        else:
+            kw = dict(codes=codes if form == "group" else scodes, form=form,
+                      block_base=base)
+        ref = fused.hdlc_fused_reference(pq, lost2_lo=lo, lost2_hi=hi, **kw)
+        if "codes" in kw:
+            kw["codes"] = view(kw["codes"])
+        before = fused.hdlc_fused.launches
+        k = fused.hdlc_fused(kq, lost2_lo=lo, lost2_hi=hi, **kw)
+        assert fused.hdlc_fused.launches == before + 1
+        torch.cuda.synchronize()
+        _assert_same(k, ref)
+        kq, pq = k[0], ref[0]
+
+
+def _forbid_plain_versions(mp):
+    """The plain versions that the card routes must not reach, made to
+    raise through the MonkeyPatch ``mp``: the per-sample DPLL loop, the
+    per-slot deframer loop, the group reduce, the wrappers' plain
+    versions."""
+    from gnuais_tpu_torch.ops import demod
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on a card route")
+    for mod, name in ((demod, "dpll_scan"),
+                      (demod, "hdlc_scan_candidates_reference"),
+                      (demod, "group_reduce_bits"),
+                      (fused, "frontend_fused_reference"),
+                      (fused, "dpll_fused_reference"),
+                      (fused, "hdlc_fused_reference")):
+        mp.setattr(mod, name, plain)
+
+
+@pytest.mark.parametrize("flag", ["fast_dpll", "fused_frontend", "exact"])
+def test_card_route_runs_no_plain_loop(cuda, flag):
+    """decode_block's unfused branches on the card against the CPU's
+    plain chain, three chained blocks, bitwise, with every plain loop
+    made to raise on the card run; each block launches its front-end
+    kernel and the deframer once."""
+    s = 64
+    x = captures.mixed(s, 3 * T, seed=14)
+    flags = {} if flag == "exact" else {flag: True}
+    front = (fused.frontend_fused if flag == "fused_frontend"
+             else fused.dpll_fused)
+    out = []
+    for dev in ("cpu", cuda):
+        c = init_carry(s, dev)
+        leaves = []
+        with pytest.MonkeyPatch.context() as mp:
+            if dev != "cpu":
+                _forbid_plain_versions(mp)
+            before = (front.launches, fused.hdlc_fused.launches)
+            for b in range(3):
+                nv = T if b < 2 else T - 333
+                c, f, p = decode_block(
+                    torch.from_numpy(np.ascontiguousarray(
+                        x[:, b * T:(b + 1) * T])).to(dev),
+                    nv, c, frame_slots=16, block_base=b * T, lost2_lo=500,
+                    lost2_hi=9000, **flags)
+                leaves += [t.cpu() for t in _flat((c, f, p))]
+            if dev != "cpu":
+                assert (front.launches, fused.hdlc_fused.launches) == \
+                    (before[0] + 3, before[1] + 3)
+        out.append(leaves)
+    _assert_same(out[1], out[0])
+
+
+@pytest.mark.parametrize("backend", ["exact", "fast", "fused_frontend"])
+def test_card_routes_on_fixture_blocks(cuda, backend):
+    """The fixture's chained blocks as the command line gives them (one
+    stream; ``exact``: 1020-sample blocks; the others 1020 samples
+    padded to 1024, 73 blocks with a 990-sample tail) through the card
+    routes, against the plain chain on the CPU: every frame and carry
+    leaf; 49 frames."""
+    from pathlib import Path
+    audio = np.fromfile(Path(__file__).parent / "fixtures" /
+                        "standard_capture.raw", dtype="<i2")
+    width = 1020 if backend == "exact" else 1024
+    flags = {"exact": {}, "fast": dict(fast_dpll=True),
+             "fused_frontend": dict(fused_frontend=True)}[backend]
+    ck, cp = init_carry(1, cuda), init_carry(1, "cpu")
+    frames = blocks = 0
+    for off in range(0, len(audio), 1020):
+        blk = audio[off:off + 1020]
+        xb = np.zeros((1, width), dtype=np.int16)
+        xb[0, :len(blk)] = blk
+        ck, kf, kp = decode_block(torch.from_numpy(xb).to(cuda), len(blk), ck,
+                                  frame_slots=32, **flags)
+        cp, pf, pp = decode_block(torch.from_numpy(xb), len(blk), cp,
+                                  frame_slots=32, **flags)
+        _assert_same([t.cpu() for t in _flat((ck, kf, kp))], _flat((cp, pf, pp)))
+        frames += int(kf.count.sum())
+        blocks += 1
+    assert (blocks, frames) == (73, 49)

@@ -132,3 +132,68 @@ def test_decode_block_kernel_branch_matches_jax(flag):
         _eq(jp, tp.numpy(), "peak")
         total += int(np.asarray(jf.count).sum())
     assert total > 0
+
+
+@pytest.fixture
+def card_routes(monkeypatch):
+    """The kernels' host build on the routes that CUDA tensors take:
+    ``fused.on_card`` true for CPU tensors, launches through
+    ``hostbuild.launch``, and every plain version those routes must not
+    reach made to raise (the per-sample DPLL loop, the per-slot deframer
+    loop, the group reduce's passes over [S, T], the wrappers' plain
+    versions)."""
+    from gnuais_tpu_torch import hostbuild
+    if hostbuild.gxx_path() is None:
+        pytest.skip("needs g++")
+    hostbuild.library()
+    monkeypatch.setattr(tfused, "_launch", hostbuild.launch)
+    monkeypatch.setattr(tfused, "on_card", lambda x: True)
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on a card route")
+    for mod, name in ((tdemod, "dpll_scan"),
+                      (tdemod, "hdlc_scan_candidates_reference"),
+                      (tdemod, "group_reduce_bits"),
+                      (tfused, "frontend_fused_reference"),
+                      (tfused, "dpll_fused_reference"),
+                      (tfused, "hdlc_fused_reference")):
+        monkeypatch.setattr(mod, name, plain)
+
+
+@pytest.mark.parametrize("flag", ["fast_dpll", "fused_frontend", "exact"])
+def test_decode_block_card_route_matches_jax(card_routes, flag):
+    """The routes of decode_block on the card (B3, or the exact FIR and
+    B4, then the deframer kernel and the candidate compaction, run here
+    by the kernels' host build) against JAX's decode_block with the same
+    flag (``exact``: none, JAX's exact chain) over three chained
+    512-sample blocks with a short tail, a block base and a lost2
+    window: every carry leaf and FrameBatch leaf equal after every
+    block, and the kernels launched once each a block."""
+    t = 512
+    x = captures.mixed(S, 3 * t, seed=11)
+    jc, tc = jpipe.init_carry(S), tpipe.init_carry(S, "cpu")
+    flags = {} if flag == "exact" else {flag: True}
+    launches = (tfused.frontend_fused if flag == "fused_frontend"
+                else tfused.dpll_fused)
+    before = (launches.launches, tfused.hdlc_fused.launches)
+    total = 0
+    for b in range(3):
+        xb = x[:, b * t:(b + 1) * t]
+        nv = t if b < 2 else 300
+        kw = dict(frame_slots=8, block_base=5 + b * t, **flags)
+        jc, jf, jp = jpipe.decode_block(
+            jnp.asarray(xb), jnp.int32(nv), jc, lost2_lo=jnp.int32(100),
+            lost2_hi=jnp.int32(1200), **kw)
+        tc, tf, tp = tpipe.decode_block(torch.from_numpy(xb), nv, tc,
+                                        lost2_lo=100, lost2_hi=1200, **kw)
+        for i, (a, c) in enumerate(zip([np.asarray(v) for v in
+                                        jax.tree.leaves(jc)],
+                                       convert.carry_to_numpy(tc))):
+            _eq(a, c, f"block {b} carry leaf {i}")
+        for name, a, c in zip(jf._fields, jf, convert.frames_to_numpy(tf)):
+            _eq(a, c, f"block {b} {name}")
+        _eq(jp, tp.numpy(), "peak")
+        total += int(np.asarray(jf.count).sum())
+    assert total > 0
+    assert (launches.launches, tfused.hdlc_fused.launches) == \
+        (before[0] + 3, before[1] + 3)

@@ -1,12 +1,13 @@
-"""Kernels B1 and B2 and the mxu probe as host C++ (``gnuais_tpu_torch.
-hostbuild``): the kernel bodies of ``csrc/`` themselves (the FIR
-producer warps, the ring's barriers and copies, the chain consumer
-warp) run on the CPU, one std::thread per CUDA thread, through the
-wrappers' ``_launch_*`` functions, against the plain versions: every
-output and carry leaf bitwise, in every FIR mode and both input layouts
-(time-major; row-major, with a pitch that does or does not allow
-16-byte copies), at S = 1 and 37, T = 1000, over chained blocks.
-Skips only where there is no ``g++``.
+"""Kernels B1, B2, B3, B4, the deframer and the mxu probe as host C++
+(``gnuais_tpu_torch.hostbuild``): the kernel bodies of ``csrc/``
+themselves (the FIR producer warps, the ring's barriers and copies, the
+chain consumer warps, the deframer's tile ring) run on the CPU, one
+std::thread per CUDA thread, through the wrappers' launch functions,
+against the plain versions: every output and carry leaf bitwise, in
+every FIR mode and both input layouts (time-major; row-major, with a
+pitch that does or does not allow 16-byte copies), at S = 1 to 64, T =
+1000 to 8192, over chained blocks.  Skips only where there is no
+``g++``.
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 
 from gnuais_tpu_torch import captures, hostbuild
 from gnuais_tpu_torch.constants import FIR_LEN, FIR_TAPS
-from gnuais_tpu_torch.ops import fir, fused
+from gnuais_tpu_torch.ops import demod, fir, fused
 from gnuais_tpu_torch.runtime.pipeline import PipelineCarry, init_carry
 
 T = 1000
@@ -123,3 +124,148 @@ def test_probe_body_within_bound(host, s, t):
               for i, c in enumerate(np.asarray(FIR_TAPS, np.float32)))
     lim = fused.MXU_BOUND[0] * mag + fused.MXU_BOUND[1]
     assert ((k - e).abs() <= lim).all()
+
+
+# B3, B4 and the deframer: (maker, S, T, n_valid of each chained block,
+# block base, lost2 window, input layout)
+FRONT = {
+    # one stream; a block that only freezes the carry
+    "S1_T1000": (captures.mixed, 1, 1000, (1000, 0, 1000), 0, None, "row"),
+    # S not a multiple of 32; M = 250 slots, not a multiple of 64;
+    # n_valid short, then T
+    "S37_T1000_short": (captures.mixed, 37, 1000, (1000, 20, 667), 77, None,
+                        "row"),
+    # frames that straddle the seams of 1024-sample blocks, positions
+    # that cross the int32 wrap
+    "S33_T1024_straddle": (captures.mixed, 33, 1024, (1024, 1024, 1024),
+                           2**31 - 1500, None, "row"),
+    "S40_T8192": (captures.noisy_frames, 40, 8192, (8192 - 333,), 5, None,
+                  "row"),
+    # a lost2 window over wrong-size stops and CRC rejects
+    "S37_lost2_window": (captures.wrong_size_and_crc, 37, 4096, (4096,), 1000,
+                         (1000 + 600, 1000 + 3000), "row"),
+    # back-to-back minimal frames, the densest completions the deframer
+    # permits (MINI_SLOTS in a 64-slot chunk; a third cannot fit, so
+    # `over` stays 0 on both sides), with n_valid mid-frame
+    "S64_minimal_frames": (captures.minimal_frames, 64, 4096, (4096, 2001),
+                           0, None, "row"),
+    # the raw block, and B3's and B4's codes, read from views with an
+    # odd pitch and offset: no 16-byte copies anywhere
+    "S37_odd_pitch": (captures.mixed, 37, 1000, (1000, 500), 3, None, "odd"),
+}
+
+
+def _view(x: torch.Tensor, layout: str) -> torch.Tensor:
+    """``x`` [R, C] as it is, or as a view with an odd pitch inside a
+    wider tensor."""
+    if layout == "row":
+        return x
+    wide = torch.zeros((x.shape[0], x.shape[1] + 5), dtype=x.dtype)
+    wide[:, 3:3 + x.shape[1]] = x
+    return wide[:, 3:3 + x.shape[1]]
+
+
+@pytest.mark.parametrize("kernel", ["B3", "B4", "hdlc_group", "hdlc_sample",
+                                    "hdlc_slots"])
+@pytest.mark.parametrize("case", sorted(FRONT))
+def test_front_and_deframer_bodies_match_plain(host, case, kernel):
+    """Each kernel against its plain version over the case's chained
+    blocks, each side chained through its own carry: B3
+    (``frontend_codes``) against ``frontend_fused_reference``, B4
+    (``dpll_codes``) against ``dpll_fused_reference`` on the exact FIR,
+    and the deframer (``hdlc_fused``) on B3's group codes, B4's sample
+    codes and [S, M] slots against ``hdlc_fused_reference``, every
+    candidate, counter and carry leaf."""
+    maker, s, t, nvs, base0, window, layout = FRONT[case]
+    x = maker(s, len(nvs) * t, seed=s + t)
+    lo, hi = window or (None, None)
+    c0 = init_carry(s, "cpu")
+    kh, kd, ph, pd = c0.history, c0.dpll, c0.history, c0.dpll    # B3
+    fh, kd4, pd4 = c0.history, c0.dpll, c0.dpll                   # B4
+    kq = pq = c0.hdlc                                             # deframer
+    for b, nv in enumerate(nvs):
+        xb = torch.from_numpy(np.ascontiguousarray(x[:, b * t:(b + 1) * t]))
+        base = base0 + b * t
+        codes, kh, kd = fused.frontend_codes(_view(xb, layout), nv, kh, kd)
+        p = fused.frontend_fused_reference(xb, nv, ph, pd, base)
+        if kernel == "B3":
+            _assert_same((*fused._group_slots(codes, base), kh, kd), p)
+        ph, pd = p[3], p[4]
+        filtered, fh = fir.fir_exact(xb, fh, n_valid=nv)
+        scodes, kd4 = fused.dpll_codes(_view(filtered, layout), nv, kd4)
+        p4 = fused.dpll_fused_reference(filtered, nv, pd4)
+        if kernel == "B4":
+            ct = scodes.t()
+            _assert_same((ct >= 2, (ct & 1).to(torch.int32), kd4), p4)
+        pd4 = p4[2]
+        if not kernel.startswith("hdlc"):
+            continue
+        form = kernel.split("_")[1]
+        kw = dict(lost2_lo=lo, lost2_hi=hi)
+        if form == "slots":
+            kw.update(bitrows=p[0], slot_valid=p[1], pos_rows=p[2])
+            given = None
+        else:
+            given = codes if form == "group" else scodes
+            kw.update(block_base=base)
+        before = fused.hdlc_fused.launches
+        k = fused._launch_hdlc(
+            kq, form, None if given is None else _view(given, layout),
+            kw.get("bitrows"), kw.get("slot_valid"), kw.get("pos_rows"),
+            kw.get("block_base", 0), lo, hi)
+        assert fused.hdlc_fused.launches == before + 1
+        ref = fused.hdlc_fused_reference(pq, given, form, **kw)
+        _assert_same(k, ref)
+        assert int(ref[1].over.sum()) == 0
+        kq, pq = k[0], ref[0]
+
+
+def _dense_bits(s: int, m: int) -> np.ndarray:
+    """[S, M] bit slots of back-to-back shortest frames: 17 alternations,
+    the start flag, 20 zeros and the stop flag, 51 slots a frame (the
+    completions of a 64-slot chunk: up to MINI_SLOTS), the phase moving
+    from row to row."""
+    flag = [1, 1, 1, 1, 1, 1, 0]
+    unit = [0, 1] * 8 + [0] + flag + [0] * 20 + flag
+    rows = np.empty((s, m), dtype=np.int32)
+    for i in range(s):
+        seq = [1] * (i % 51) + unit * (m // len(unit) + 2)
+        rows[i] = seq[:m]
+    return rows
+
+
+@pytest.mark.parametrize("form", ["group", "sample", "slots"])
+@pytest.mark.parametrize("s,m", [(1, 1000), (37, 4096), (64, 250)])
+def test_deframer_body_dense_completions(host, s, m, form):
+    """The deframer kernel where chunks hold MINI_SLOTS completions (the
+    second lands in the chunk's second candidate slot), every slot valid
+    but a gap of invalid ones, from each input form, against the plain
+    version, with a lost2 window."""
+    bits = _dense_bits(s, m)
+    valid = np.ones((s, m), dtype=bool)
+    valid[:, m // 3:m // 3 + 7] = False
+    base = 11
+    if form == "group":
+        codes = torch.from_numpy(((valid << 3) | (bits << 2) | 2).astype(np.uint8).T
+                                 .copy())
+        given = dict(codes=codes)
+    elif form == "sample":
+        sc = np.zeros((4 * m, s), dtype=np.uint8)
+        sc[1::4] = np.where(valid, 2 + bits, 0).T
+        given = dict(codes=torch.from_numpy(sc))
+    else:
+        pos = (base + 4 * np.arange(m) + 1)[None, :].repeat(s, 0)
+        given = dict(bitrows=torch.from_numpy(bits),
+                     slot_valid=torch.from_numpy(valid),
+                     pos_rows=torch.from_numpy(pos.astype(np.int32)))
+    state = init_carry(s, "cpu").hdlc
+    window = dict(lost2_lo=base + 400, lost2_hi=base + 3000)
+    k = fused._launch_hdlc(state, form, given.get("codes"),
+                           given.get("bitrows"), given.get("slot_valid"),
+                           given.get("pos_rows"), base, **window)
+    ref = fused.hdlc_fused_reference(state, form=form, block_base=base,
+                                     **given, **window)
+    _assert_same(k, ref)
+    cand = ref[1].valid.reshape(s, -1, 2)
+    assert bool(cand.all(dim=2).any()) == (m >= 128)
+    assert int(ref[1].over.sum()) == 0
