@@ -98,14 +98,39 @@ raises and exits non-zero:
    their plain versions at S = 64, bitwise, and at S = 4096 (timed);
    then the tool's table (python -m gnuais_tpu_torch.roofline) at 4096
    and 16,384 streams, beside B1's ns a sample from phase 6.
+15. Station: the command line as a station runs it, on the card, for
+   --backend fused (B2) and exact (B4 and the deframer kernel); every
+   run's NMEA socket on a temporary path, never the default one.  The
+   fixture fed live through a FIFO with every sink on (the NMEA socket
+   with a client, sqlite, the JSON-AIS uplink to a local HTTP server,
+   the soundoutfile tee): stdout byte for byte with counters (49, 0, 0),
+   the socket's sentences, one ais_nmea row a sentence, the tee's bytes,
+   the uplink's JSON equal to the golden model's.  The station's time:
+   three runs on the fixture looped 16 times (24.8 s of audio), fed as
+   fast as the CLI reads, every sink on, checked against the fixture's
+   lines; the set-up, the block loop (its real-time factor) and the
+   close apart, and each process_block call's host time.  Then at the
+   pace of real time with statsinterval 1s (range lines) and --profile
+   (the torch.profiler trace names each kernel the backend launches);
+   the checkpoint seam (--checkpoint over the first half, then the
+   whole capture: the lines together equal the fixture's); and
+   soundchannels both (the fixture on A, a seeded capture on B) equal to
+   the golden model's lines and counters on each channel.
+16. Supervised fleet: SupervisedDecoder over phase 4's BatchPipeline (B2)
+   on the three fleet blocks, a checkpoint after every block, a failure
+   injected in the second block's process(): frames and counters equal
+   phase 4's; a new decoder over the snapshot after two blocks resumes
+   at 2 x 49,152 samples and decodes block 3 equal to phase 4's; the
+   checkpoint's write and read times at 4096 streams and the recovery's
+   wall time.
 Then one JSON line of the twelve kernel modes (launch counts from their
 own paths, each count set to 0 just before its path: B2 over phases
-4-5, B1 in phase 7's pretiled call, B2 lobe and B1 lobe over phase 8,
-B1 mxu and B2 mxu over phases 7m and 8m, B3 over phase 9, B4 over phase
-12, the deframer on group codes over phase 9 and on sample codes over
-phase 12, R1 and R2 over phase 14's table; times and bounds at the
-fleet size, R1's and
-R2's at 4096 streams and 4096 steps), a check
+4-5, 15 and 16, B1 in phase 7's pretiled call, B2 lobe and B1 lobe over
+phase 8, B1 mxu and B2 mxu over phases 7m and 8m, B3 over phase 9, B4
+over phases 12 and 15, the deframer on group codes over phase 9 and on
+sample codes over phases 12 and 15, R1 and R2 over phase 14's table;
+times and bounds at the fleet size, R1's and R2's at 4096 streams and
+4096 steps), a check
 that neither JAX nor the JAX package was imported, the card's name and
 power limit, and the result line {"ok": true, "device": {...}}.
 
@@ -115,6 +140,7 @@ when run outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -495,7 +521,7 @@ def phase_main_path():
                          frame_slots=FLEET_SLOTS, fused_pipeline=True,
                          device_crc=True, device="cuda")
     carry0 = pipe.carry
-    times, carry1 = [], None
+    times, carry1, per_block = [], None, []
     got = [[] for _ in range(FLEET_STREAMS)]
     for b, x in enumerate(blocks):
         torch.cuda.synchronize()
@@ -505,7 +531,8 @@ def phase_main_path():
         if b == 0:
             carry1 = pipe.carry
         n_frames = check_payloads(per_stream, expected[b], f"block {b}")
-        for i, lst in enumerate(payloads(per_stream)):
+        per_block.append(payloads(per_stream))
+        for i, lst in enumerate(per_block[-1]):
             got[i].extend(lst)
         print(f"[4 main path] block {b}: {FLEET_STREAMS} streams x "
               f"{FLEET_BLOCK} samples, {n_frames} frames, all payloads equal "
@@ -520,17 +547,18 @@ def phase_main_path():
           f"{statistics.median(times) * 1e3:.1f} ms", flush=True)
     counters = [vars(c) for c in pipe.counters]
     return blocks, expected, carry0, carry1, statistics.median(times), \
-        (got, counters)
+        (got, counters), per_block
 
 
 def phase_end_to_end(backend: str, label: str):
     """The command line as a user runs it (``gnuais-tpu-torch -l
     capture.raw --backend <backend>``, on cuda by default), in this
-    process so that its kernel launches are counted."""
+    process so that its kernel launches are counted, its NMEA socket in
+    a temporary directory."""
     import contextlib
     import io
     import logging
-    from gnuais_tpu_torch import cli
+    import tempfile
     fix = REPO / "tests" / "fixtures"
     out, summary = io.StringIO(), io.StringIO()
     handler = logging.StreamHandler(summary)
@@ -538,7 +566,9 @@ def phase_end_to_end(backend: str, label: str):
     log.setLevel(logging.INFO)
     log.addHandler(handler)
     try:
-        with contextlib.redirect_stdout(out):
+        with tempfile.TemporaryDirectory() as tmp, \
+                own_socket(short_path(Path(tmp) / "nmea.sock")) as cli, \
+                contextlib.redirect_stdout(out):
             rc = cli.main(["-l", str(fix / "standard_capture.raw"),
                            "--backend", backend])
     finally:
@@ -1538,6 +1568,463 @@ def phase_path_r(b1_ms):
     return line, launches
 
 
+STATION_BACKENDS = {"fused": ("B2",), "exact": ("B4", "deframer")}
+STATION_KERNELS = {"B2": "pipeline_kernel", "B4": "dpll_kernel",
+                   "deframer": "hdlc_kernel"}
+STATION_PAYLOADS = 6      # the second channel's payloads in phase 15
+STATION_LOOPS = 16        # the fixture repeated: 24.8 s of audio a timed run
+STATION_RUNS = 3          # timed runs a backend
+
+
+def station_wrappers():
+    """Each kernel of the station path and the wrapper that counts its
+    launches."""
+    from gnuais_tpu_torch.ops import fused
+    return {"B2": fused.pipeline_fused, "B4": fused.dpll_fused,
+            "deframer": fused.hdlc_fused}
+
+
+def short_path(path: Path) -> str:
+    """``path`` absolute or relative to the working directory, whichever
+    is shorter (a Unix socket's path has room for 107 bytes)."""
+    import os
+    return min(str(path), os.path.relpath(path), key=len)
+
+
+@contextlib.contextmanager
+def own_socket(path: str):
+    """A context in which the port's CLI opens its NMEA socket server at
+    ``path`` rather than at its default, ``/tmp/gnuais.socket``: a fixed
+    path outside the checkout that any other process on the machine may
+    bind.  Yields the CLI module."""
+    import functools
+    from gnuais_tpu_torch import cli
+    from gnuais_tpu_torch.io import sinks
+    real = cli.NmeaSocketServer
+    cli.NmeaSocketServer = functools.partial(sinks.NmeaSocketServer, path)
+    try:
+        yield cli
+    finally:
+        cli.NmeaSocketServer = real
+
+
+def uplink_recorder():
+    """The tests' local JSON-AIS uplink (tests/uplink_recorder.py): an
+    HTTP server on 127.0.0.1 that keeps the JSON of every POST."""
+    sys.path.insert(0, str(REPO / "tests"))
+    try:
+        import uplink_recorder
+    finally:
+        sys.path.remove(str(REPO / "tests"))
+    return uplink_recorder
+
+
+class StationRun:
+    """One ``cli.main`` call of ``station_cli``: its exit code, stdout,
+    log text and the NMEA socket's bytes; ``t0`` and ``t1`` (host clock)
+    bracket the call, ``blocks`` holds (start, end) of each
+    ``DecodeSession.process_block`` call within it."""
+
+    def __init__(self, rc, out, log, nmea, t0, t1, blocks):
+        self.rc, self.out, self.log, self.nmea = rc, out, log, nmea
+        self.t0, self.t1, self.blocks = t0, t1, blocks
+        self.wall = t1 - t0
+
+
+def station_cli(argv, sock, data=None, fifo=None, pace=False,
+                collect=False):
+    """``gnuais-tpu-torch argv`` in this process (its launches counted),
+    its stdout captured, its NMEA socket at ``sock``; with ``data``, a
+    writer thread feeds the bytes into the FIFO ``fifo`` (at the rate of
+    real time with ``pace``); with ``collect``, a client connected before
+    the call collects the socket's sentences.  Returns a StationRun."""
+    import contextlib
+    import fcntl
+    import io
+    import logging
+    import os
+    import socket
+    import threading
+    from gnuais_tpu_torch.io import sinks
+    from gnuais_tpu_torch.runtime.session import DecodeSession
+    threads, nmea, blocks = [], bytearray(), []
+    if data is not None:
+        os.mkfifo(fifo)
+
+        def write():
+            # 0.1 s of mono audio a write; with pace, 0.1 s between writes
+            # into a one-page pipe, so that the reader gets the audio at
+            # the rate of real time from its first read on
+            step = 2 * 4800
+            with open(fifo, "wb") as f:
+                if pace:
+                    fcntl.fcntl(f, fcntl.F_SETPIPE_SZ, 4096)
+                for o in range(0, len(data), step):
+                    f.write(data[o:o + step])
+                    f.flush()
+                    if pace:
+                        time.sleep(0.1)
+        threads.append(threading.Thread(target=write))
+    with own_socket(sock) as cli:
+        if collect:
+            srv = sinks.NmeaSocketServer(sock)
+            client = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            client.connect(sock)
+            deadline = time.time() + 30
+            while not srv._clients and time.time() < deadline:
+                time.sleep(0.01)
+            check(bool(srv._clients), "the NMEA socket took no client")
+
+            def read():
+                while chunk := client.recv(65536):
+                    nmea.extend(chunk)
+                client.close()
+            threads.append(threading.Thread(target=read))
+            cli.NmeaSocketServer = lambda: srv
+        out, summary = io.StringIO(), io.StringIO()
+        handler = logging.StreamHandler(summary)
+        log = logging.getLogger("gnuais")
+        log.setLevel(logging.INFO)
+        log.addHandler(handler)
+        process_block = DecodeSession.process_block
+
+        def timed_block(self, *args):
+            t = time.perf_counter()
+            res = process_block(self, *args)
+            blocks.append((t, time.perf_counter()))
+            return res
+        DecodeSession.process_block = timed_block
+        for t in threads:
+            t.start()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+            t1 = time.perf_counter()
+        finally:
+            DecodeSession.process_block = process_block
+            log.removeHandler(handler)
+            for t in threads:
+                t.join(timeout=60)
+    return StationRun(rc, out.getvalue(), summary.getvalue(), bytes(nmea),
+                      t0, t1, blocks)
+
+
+def golden_stdout(interleaved, channels):
+    """The port's golden model's stdout lines and NMEA sentences on a
+    capture, and the JSON-AIS blob of its events (host only)."""
+    from gnuais_tpu_torch.golden.model import GoldenReceiver
+    from gnuais_tpu_torch.io.cache import VesselCache, export_json
+    from gnuais_tpu_torch.runtime.session import DecodeSession
+    res = DecodeSession(lambda n: GoldenReceiver(n),
+                        sound_channels=channels).run(interleaved)
+    cache = VesselCache()
+    for m in res.messages:
+        for ev in m.events:
+            cache.apply_event(ev, 0)
+    return res.stdout_lines, res.counters, export_json(cache.rotate(), "CHIP")[0]
+
+
+def no_seqnr(text: str) -> str:
+    """Message lines with each multipart sentence's sequence id and
+    checksum masked: they go on counting where a capture repeats."""
+    import re
+    return re.sub(r"(!AIVDM,\d,\d,)\d(,[^*]*\*)[0-9A-F]{2}", r"\1S\2CS", text)
+
+
+def station_counters(n: int) -> str:
+    return (f"A: Received correctly: {n} packets, wrong CRC: 0 packets, "
+            "wrong size: 0 packets")
+
+
+def phase_station(tmp: Path):
+    """Phase 15: the station path through the port's command line on the
+    card, the fixture fed live through a FIFO, with every sink on, for
+    each backend; the station's time over the fixture looped; then the
+    checkpoint seam and two channels.  Returns ({kernel: launches},
+    {backend: the station's times})."""
+    import re
+    import sqlite3
+    from gnuais_tpu_torch import constants as C
+    from gnuais_tpu_torch.golden import encoder as E
+    recorder = uplink_recorder()
+    fix = REPO / "tests" / "fixtures"
+    raw = (fix / "standard_capture.raw").read_bytes()
+    want = (fix / "standard_capture.stdout").read_text()
+    want_nmea = (fix / "standard_capture.nmea").read_text().splitlines()
+    audio = np.frombuffer(raw, dtype="<i2")
+    _, _, want_blob = golden_stdout(audio, C.SOUND_CHANNELS_MONO)
+    counters = station_counters(49)
+    wrappers = station_wrappers()
+    launches = {k: 0 for k in wrappers}
+    times = {}
+
+    def counted(kernels, fn):
+        for k in kernels:
+            wrappers[k].launches = 0
+        res = fn()
+        for k in kernels:
+            check(wrappers[k].launches > 0, f"kernel {k} was not launched")
+            launches[k] += wrappers[k].launches
+        return res
+
+    def sinks_conf(d, backend, uplink, tag):
+        return (f"soundchannels mono\nbackend {backend}\n"
+                f"dbpath {d / f'{tag}.sqlite'}\n"
+                f"uplink chip json {uplink.url}\nmycall CHIP\n"
+                f"soundoutfile {d / f'{tag}.tee'}\n")
+
+    for backend, kernels in STATION_BACKENDS.items():
+        d = tmp / backend
+        d.mkdir()
+        sock = short_path(d / "nmea.sock")
+        uplink = recorder.UplinkRecorder()
+        conf = d / "station.conf"
+        conf.write_text(sinks_conf(d, backend, uplink, "ais"))
+        try:
+            run = counted(kernels, lambda: station_cli(
+                ["-c", str(conf), "-l", str(d / "in.fifo")], sock, raw,
+                d / "in.fifo", collect=True))
+        finally:
+            uplink.close()
+        check(run.rc == 0 and run.out == want,
+              f"{backend}: station stdout differs")
+        check(counters in run.log, f"{backend}: counters: {run.log!r}")
+        check(run.nmea == "".join(want_nmea).encode(),
+              f"{backend}: the socket's sentences differ")
+        check((d / "ais.tee").read_bytes() == raw, f"{backend}: tee differs")
+        conn = sqlite3.connect(str(d / "ais.sqlite"))
+        rows = [r[0] for r in conn.execute(
+            "SELECT message FROM ais_nmea ORDER BY id")]
+        conn.close()
+        check(rows == want_nmea, f"{backend}: ais_nmea rows differ")
+        check(len(uplink.posts) == 1 and recorder.masked(uplink.posts[0])
+              == recorder.masked(want_blob),
+              f"{backend}: the uplink's JSON differs")
+        mmsis = {int(m) for m in re.findall(r'"mmsi": (\d+)', uplink.posts[0])}
+        check(bool(mmsis) and mmsis <= {int(m) for m in re.findall(
+            r"mmsi (\d+)", want)},
+              f"{backend}: the uplink's MMSIs {sorted(mmsis)[:5]}")
+        print(f"[15 station] {backend} ({', '.join(kernels)}), fed live "
+              f"through a FIFO: stdout byte for byte, counters (49, 0, 0); "
+              f"the NMEA socket's {len(want_nmea)} sentences, {len(rows)} "
+              f"ais_nmea rows, the tee's {len(raw)} bytes and the uplink's "
+              f"JSON ({len(mmsis)} MMSIs) equal the reference; the whole "
+              f"call {run.wall * 1e3:.1f} ms for {len(audio) / 48000.0:.3f} "
+              f"s of audio", flush=True)
+
+        # the station's time: the fixture looped to tens of seconds, fed
+        # as fast as the CLI reads it, every sink on; the set-up (from
+        # the call to its first block), the loop over the blocks and the
+        # close (from the last block to the return) apart
+        looped = raw * STATION_LOOPS
+        seconds = len(looped) / 2 / 48000.0
+        times[backend] = []
+        for r in range(STATION_RUNS):
+            uplink = recorder.UplinkRecorder()
+            conf.write_text(sinks_conf(d, backend, uplink, f"t{r}"))
+            fifo = d / f"t{r}.fifo"
+            try:
+                run = counted(kernels, lambda: station_cli(
+                    ["-c", str(conf), "-l", str(fifo)], sock, looped, fifo,
+                    collect=True))
+            finally:
+                uplink.close()
+            check(run.rc == 0 and no_seqnr(run.out)
+                  == no_seqnr(want) * STATION_LOOPS,
+                  f"{backend}: the looped stdout differs")
+            check(station_counters(49 * STATION_LOOPS) in run.log,
+                  f"{backend}: looped counters: {run.log[-300:]!r}")
+            check(len(run.nmea) == len("".join(want_nmea)) * STATION_LOOPS,
+                  f"{backend}: the looped socket's bytes")
+            check((d / f"t{r}.tee").read_bytes() == looped,
+                  f"{backend}: the looped tee differs")
+            per = [(e - s) * 1e3 for s, e in run.blocks]
+            q = statistics.quantiles(per, n=10)
+            loop_s = run.blocks[-1][1] - run.blocks[0][0]
+            t = dict(setup_ms=(run.blocks[0][0] - run.t0) * 1e3,
+                     loop_s=loop_s,
+                     close_ms=(run.t1 - run.blocks[-1][1]) * 1e3,
+                     n=len(per), block_ms=statistics.median(per),
+                     p10_ms=q[0], p90_ms=q[-1], max_ms=max(per),
+                     gap_ms=(loop_s * 1e3 - sum(per)) / len(per),
+                     rtf=seconds / loop_s, rtf_call=seconds / run.wall)
+            times[backend].append(t)
+            print(f"[15 station] {backend} timed run {r + 1} of "
+                  f"{STATION_RUNS}: the fixture x {STATION_LOOPS} "
+                  f"({seconds:.3f} s of audio, stdout, counters "
+                  f"({49 * STATION_LOOPS}, 0, 0), socket and tee checked), "
+                  f"every sink on: set-up {t['setup_ms']:.1f} ms; "
+                  f"{t['n']} blocks in {loop_s * 1e3:.1f} ms = "
+                  f"{t['rtf']:.2f}x real time; process_block median "
+                  f"{t['block_ms']:.3f} ms (p10 {t['p10_ms']:.3f}, p90 "
+                  f"{t['p90_ms']:.3f}, max {t['max_ms']:.3f}), between "
+                  f"blocks {t['gap_ms']:.3f} ms; close {t['close_ms']:.1f} "
+                  f"ms; the whole call {run.wall * 1e3:.1f} ms = "
+                  f"{t['rtf_call']:.2f}x (host clock)", flush=True)
+
+        # at the pace of real time, range statistics each second and the
+        # torch profiler's trace of the card
+        prof = d / "prof"
+        conf.write_text(f"soundchannels mono\nbackend {backend}\n"
+                        "statsinterval 1s\nlatitude 59.9\nlongitude 10.7\n")
+        run = counted(kernels, lambda: station_cli(
+            ["-c", str(conf), "-l", str(d / "rt.fifo"), "--profile",
+             str(prof)], sock, raw, d / "rt.fifo", pace=True))
+        check(run.rc == 0 and run.out == want,
+              f"{backend}: real-time stdout differs")
+        ranges = [line for line in run.log.splitlines()
+                  if "Best range ch A" in line]
+        check(1 <= len(ranges) <= run.wall, f"{backend}: {len(ranges)} range "
+              f"lines in {run.wall:.2f} s")
+        check("torch profiler trace" in run.log, "no profiler log line")
+        traces = sorted(prof.glob("*.pt.trace.json"))
+        check(len(traces) == 1, f"{backend}: traces {traces}")
+        trace = traces[0].read_text()
+        for k in kernels:
+            check(STATION_KERNELS[k] in trace,
+                  f"{backend}: the trace lacks {STATION_KERNELS[k]}")
+        print(f"[15 station] {backend} at the pace of real time: "
+              f"{len(ranges)} range lines ('{ranges[0].split(': ', 1)[1]}') "
+              f"in {run.wall:.2f} s; the torch profiler's trace "
+              f"({traces[0].stat().st_size} bytes) names "
+              f"{', '.join(STATION_KERNELS[k] for k in kernels)}", flush=True)
+
+        # the checkpoint seam: the first half, then the whole capture
+        half = d / "half.raw"
+        half.write_bytes(raw[: len(raw) // 4 * 2])
+        conf.write_text(f"soundchannels mono\nbackend {backend}\n")
+        ck = ["-c", str(conf), "--checkpoint", str(d / "ck")]
+        run1 = counted(kernels, lambda: station_cli([*ck, "-l", str(half)],
+                                                    sock))
+        run2 = counted(kernels, lambda: station_cli(
+            [*ck, "-l", str(fix / "standard_capture.raw")], sock))
+        check(run1.rc == run2.rc == 0 and run1.out + run2.out == want
+              and run1.out and run2.out,
+              f"{backend}: the checkpoint seam's lines differ")
+        check("Resuming from checkpoint" in run2.log and counters in run2.log,
+              f"{backend}: resume: {run2.log!r}")
+        print(f"[15 station] {backend} checkpoint seam: "
+              f"{len(run1.out.splitlines())} + {len(run2.out.splitlines())} "
+              f"lines == the fixture's, counters (49, 0, 0) after the "
+              f"resume", flush=True)
+
+        # two channels: the fixture on A, a seeded capture on B
+        rng = np.random.default_rng([SEED, 15])
+        pays = [E.random_payload(rng) for _ in range(STATION_PAYLOADS)]
+        b = E.synthesize_capture(pays, gap_bits=64)
+        b = np.concatenate([b, np.full(len(audio) - len(b), b[-1], b.dtype)])
+        stereo = E.interleave_stereo(audio, b)
+        lines, ctr, _ = golden_stdout(stereo, C.SOUND_CHANNELS_BOTH)
+        check(ctr == {"A": (49, 0, 0), "B": (STATION_PAYLOADS, 0, 0)},
+              f"golden stereo counters {ctr}")
+        conf.write_text(f"soundchannels both\nbackend {backend}\n")
+        run = counted(kernels, lambda: station_cli(
+            ["-c", str(conf), "-l", str(d / "st.fifo")], sock,
+            stereo.astype("<i2").tobytes(), d / "st.fifo"))
+        check(run.rc == 0 and run.out.splitlines() == lines,
+              f"{backend}: stereo stdout differs")
+        check(counters in run.log and "B: Received correctly: "
+              f"{STATION_PAYLOADS} packets, wrong CRC: 0 packets, wrong "
+              "size: 0 packets" in run.log, f"{backend}: stereo counters")
+        print(f"[15 station] {backend} soundchannels both: {len(lines)} "
+              f"lines == the golden model's (A 49, B {STATION_PAYLOADS}, "
+              f"each payload on its channel), counters (49, 0, 0) and "
+              f"({STATION_PAYLOADS}, 0, 0)", flush=True)
+    print(f"[15 station] launches: " + ", ".join(
+        f"{k} {n}" for k, n in launches.items()), flush=True)
+    return launches, times
+
+
+def phase_supervised(tmp: Path, blocks, per_block, main_counters):
+    """Phase 16: SupervisedDecoder over phase 4's BatchPipeline (B2) at
+    full width on the three fleet blocks, a snapshot after every block,
+    one failure injected in the second block's process(); then a fresh
+    decoder resumes from the snapshot after two blocks.  Returns B2's
+    launches and the times."""
+    import shutil
+    import torch
+    from gnuais_tpu_torch.ops import fused
+    from gnuais_tpu_torch.runtime import checkpoint as ckpt
+    from gnuais_tpu_torch.runtime.pipeline import BatchPipeline
+    from gnuais_tpu_torch.runtime.supervisor import SupervisedDecoder
+    calls = [0]
+
+    class Flaky(BatchPipeline):
+        def process(self, samples):
+            calls[0] += 1
+            if calls[0] == 2:
+                raise RuntimeError("injected failure in block 1")
+            return super().process(samples)
+
+    def make():
+        return Flaky(FLEET_STREAMS, block_len=FLEET_BLOCK,
+                     frame_slots=FLEET_SLOTS, fused_pipeline=True,
+                     device_crc=True, device="cuda")
+
+    path, restart = tmp / "fleet.npz", tmp / "restart.npz"
+    events = []
+
+    def on_event(kind, detail):
+        events.append(kind)
+        if kind == "checkpoint" and detail["blocks"] == 2:
+            shutil.copyfile(path, restart)
+
+    fused.pipeline_fused.launches = 0
+    sup = SupervisedDecoder(make, path, checkpoint_every=1,
+                            retry_backoff=0.0, on_event=on_event)
+    walls = []
+    for b, x in enumerate(blocks):
+        ms, per_stream = host_ms(lambda: sup.process(x))
+        walls.append(ms)
+        check(payloads(per_stream) == per_block[b],
+              f"supervised block {b}: frames differ from phase 4's")
+    check([vars(c) for c in sup.counters] == main_counters,
+          "supervised counters differ from phase 4's")
+    check(events.count("failure") == 1 and "recovered" in events,
+          f"events {events}")
+    check(sup.pipe.device.type == "cuda", "the rebuilt pipeline left the card")
+    launches = fused.pipeline_fused.launches
+    check(launches == len(blocks), f"B2 launched {launches} times")
+    # a new process's decoder over the snapshot taken after two blocks
+    fused.pipeline_fused.launches = 0
+    ms_open, sup2 = host_ms(lambda: SupervisedDecoder(
+        lambda: BatchPipeline(FLEET_STREAMS, block_len=FLEET_BLOCK,
+                              frame_slots=FLEET_SLOTS, fused_pipeline=True,
+                              device_crc=True, device="cuda"), restart))
+    offset = sup2.resume_offset()
+    check(offset == 2 * FLEET_BLOCK, f"resume_offset {offset}")
+    per_stream = sup2.process(blocks[2])
+    check(payloads(per_stream) == per_block[2],
+          "the resumed block 2 differs from phase 4's")
+    check([vars(c) for c in sup2.counters] == main_counters,
+          "the resumed counters differ from phase 4's")
+    launches += fused.pipeline_fused.launches
+    # the snapshot's own times at full width
+    pipe = sup2.pipe
+    ms_save = statistics.median(host_ms(lambda: ckpt.save_pipeline(
+        tmp / "t.npz", pipe, 3 * FLEET_BLOCK))[0] for _ in range(5))
+    ms_load = statistics.median(host_ms(lambda: ckpt.restore_pipeline(
+        tmp / "t.npz", pipe))[0] for _ in range(5))
+    size = (tmp / "t.npz").stat().st_size
+    torch.cuda.synchronize()
+    print(f"[16 supervised] SupervisedDecoder(BatchPipeline({FLEET_STREAMS}, "
+          f"{FLEET_BLOCK}, {FLEET_SLOTS} slots, fused_pipeline, device_crc), "
+          f"checkpoint_every 1, no backoff): a failure injected in block 1's "
+          f"process(), recovered (rebuild, restore, replay); frames of "
+          f"every block and the counters == phase 4's; process() per block "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms (block 1 with the "
+          f"recovery)", flush=True)
+    print(f"[16 supervised] a new decoder over the snapshot after two "
+          f"blocks: resume_offset {offset} == 2 x "
+          f"{FLEET_BLOCK}, opened in {ms_open:.1f} ms; block 2 == phase 4's; "
+          f"checkpoint of {FLEET_STREAMS} streams ({size} bytes): write "
+          f"{ms_save:.2f} ms, read {ms_load:.2f} ms (medians of 5, host "
+          f"clock); B2 launches {launches}", flush=True)
+    return launches, dict(recovery_ms=walls[1], block_ms=walls[0],
+                          save_ms=ms_save, load_ms=ms_load)
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1570,8 +2057,8 @@ def main() -> int:
 
     # the main path: BatchPipeline and the command line, kernel B2
     fused.pipeline_fused.launches = 0
-    blocks, expected, carry0, carry1, block_s, main_result = timed(
-        "4 main path", phase_main_path)
+    blocks, expected, carry0, carry1, block_s, main_result, per_block = \
+        timed("4 main path", phase_main_path)
     timed("5 end to end", phase_end_to_end, "fused", "5 end to end")
     launches2 = fused.pipeline_fused.launches
     check(launches2 >= FLEET_BLOCKS, f"kernel B2 launched {launches2} times")
@@ -1631,6 +2118,31 @@ def main() -> int:
         {"B1 vpu": full["B1"]["pretiled_ms"],
          "B1 mxu": full_mxu["B1"]["pretiled_ms"]})
     err_m = timed("7m path M against plain", path_m_plain)
+
+    # the station path and the supervised fleet (after Path M's child
+    # process has ended, so that the host's cores are the CLI's)
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        station, station_times = timed("15 station", phase_station,
+                                       Path(tmp))
+        sup_launches, sup = timed("16 supervised", phase_supervised,
+                                  Path(tmp), blocks, per_block,
+                                  main_result[1])
+    launches2 += station["B2"] + sup_launches
+    launches4 += station["B4"]
+    launches_hs += station["deframer"]
+    print(f"[16 supervised] on {card}: station real-time factors of the "
+          f"block loop over {STATION_RUNS} runs (set-up; process_block "
+          "median) "
+          + ", ".join(f"{b} " + "/".join(f"{t['rtf']:.2f}" for t in ts)
+                      + "x (" + "/".join(f"{t['setup_ms']:.0f}" for t in ts)
+                      + " ms; " + "/".join(f"{t['block_ms']:.3f}" for t in ts)
+                      + " ms)" for b, ts in station_times.items())
+          + f"; recovery {sup['recovery_ms']:.1f} ms (a block "
+          f"{sup['block_ms']:.1f} ms); checkpoint write {sup['save_ms']:.2f} "
+          f"ms, read {sup['load_ms']:.2f} ms; launches with phases 15-16: "
+          f"B2 {launches2}, B4 {launches4}, the deframer on sample codes "
+          f"{launches_hs}", flush=True)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "gnuais_tpu")

@@ -455,21 +455,40 @@ class TorchReceiver:
     ``fast_dpll`` selects the DPLL kernel (B4; block_len a multiple of
     512), ``fused_pipeline`` the fused kernel with frame candidates (B2,
     as the JAX package's receiver runs it; block length rounded up to a
-    multiple of 512)."""
+    multiple of 512).  With ``checkpoint_path`` the pipeline is a
+    ``SupervisedDecoder`` over the same ``BatchPipeline`` factory, on the
+    same device: a snapshot every ``checkpoint_every`` blocks, exact
+    resume (``resume_offset``) and recovery of a failed block."""
 
     def __init__(self, name: str = "A", block_len: int = 1020,
                  frame_slots: int = 16, fast_dpll: bool = False,
                  fused_pipeline: bool = False, device_crc: bool = False,
-                 level_monitor=None, device: torch.device | str = "cuda"):
+                 level_monitor=None, checkpoint_path=None,
+                 checkpoint_every: int = 64,
+                 device: torch.device | str = "cuda"):
         self.name = name
         if fused_pipeline and block_len % 512:
             block_len = -(-block_len // 512) * 512
-        self.pipe = BatchPipeline(1, block_len=block_len,
-                                  frame_slots=frame_slots,
-                                  fast_dpll=fast_dpll,
-                                  fused_pipeline=fused_pipeline,
-                                  device_crc=device_crc, device=device)
+
+        def make():
+            return BatchPipeline(1, block_len=block_len,
+                                 frame_slots=frame_slots,
+                                 fast_dpll=fast_dpll,
+                                 fused_pipeline=fused_pipeline,
+                                 device_crc=device_crc, device=device)
+
+        if checkpoint_path is not None:
+            from .supervisor import SupervisedDecoder
+            self.pipe = SupervisedDecoder(make, checkpoint_path,
+                                          checkpoint_every=checkpoint_every)
+        else:
+            self.pipe = make()
         self.level_monitor = level_monitor
+
+    def resume_offset(self) -> int:
+        """Samples already consumed per a restored checkpoint (0 when
+        unsupervised or fresh)."""
+        return getattr(self.pipe, "resume_offset", lambda: 0)()
 
     def run_block(self, samples: np.ndarray) -> List[Frame]:
         if self.level_monitor is not None:

@@ -249,8 +249,12 @@ def test_copy_agrees_with_original(name, tmp_path):
 
 def test_copies_are_the_port_own():
     """Each copy is a module of the port, not the original re-exported."""
+    from gnuais_tpu_torch import monitor as tmonitor
+    from gnuais_tpu_torch.io import alsa, cache, db, live, mysql, pulse
+    from gnuais_tpu_torch.monitor import ships, webmap
     for mod in (tconfig, tC, tnative, tbits, tdisp, tenc, tmodel, taudio,
-                tsinks, tmetrics, tsession):
+                tsinks, tmetrics, tsession, live, alsa, pulse, db, mysql,
+                cache, tmonitor, ships, webmap):
         assert mod.__name__.startswith("gnuais_tpu_torch.")
         assert mod.__file__.startswith(gnuais_tpu_torch.__path__[0])
         assert not mod.__file__.startswith(gnuais_tpu.__path__[0] + "/")

@@ -32,6 +32,8 @@ MODULES = [
     "gnuais_tpu_torch.runtime.pipeline",
     "gnuais_tpu_torch.runtime.batch",
     "gnuais_tpu_torch.runtime.streaming",
+    "gnuais_tpu_torch.runtime.checkpoint",
+    "gnuais_tpu_torch.runtime.supervisor",
     # the port's own copies of the JAX package's host modules
     "gnuais_tpu_torch.constants",
     "gnuais_tpu_torch.config",
@@ -49,6 +51,15 @@ MODULES = [
     "gnuais_tpu_torch.io.sinks",
     "gnuais_tpu_torch.runtime.metrics",
     "gnuais_tpu_torch.runtime.session",
+    "gnuais_tpu_torch.io.live",
+    "gnuais_tpu_torch.io.alsa",
+    "gnuais_tpu_torch.io.pulse",
+    "gnuais_tpu_torch.io.db",
+    "gnuais_tpu_torch.io.mysql",
+    "gnuais_tpu_torch.io.cache",
+    "gnuais_tpu_torch.monitor",
+    "gnuais_tpu_torch.monitor.ships",
+    "gnuais_tpu_torch.monitor.webmap",
 ]
 
 
