@@ -38,7 +38,9 @@ raises and exits non-zero:
    consumer ring, B2 and B1 in every FIR mode from row-major and from
    time-major input against one plain run: S = 1, 31, 33, 37, 4096; T =
    1000, 1024, 8192; n_valid 0, 1, 20, 31, 32, 33, T-333 and T over
-   chained blocks.
+   chained blocks.  B1 at the lanes' shapes (F = 64 slots, T = 56,320
+   and 72,704) and B2 at the session's (T = 56,320), S = 33, against
+   their plain versions run in a CPU child (below), bitwise.
 4. Main path at full size: BatchPipeline(4096 streams, 49,152-sample
    blocks, 32 frame slots, fused_pipeline, CRC on the device), which runs
    kernel B2 and the candidate compaction, over three chained blocks;
@@ -123,9 +125,45 @@ raises and exits non-zero:
    at 2 x 49,152 samples and decodes block 3 equal to phase 4's; the
    checkpoint's write and read times at 4096 streams and the recovery's
    wall time.
+17. IQ: a stereo IQ capture at decim 4 (channel A fleet rows 0-29 of
+   block 0 laid end to end, B rows 30-59, each row rolled 0-4 samples
+   onto the free-running DPLL's grid; FM-modulated; 94 MB of float32)
+   through the command line with inputformat iq, sequential (--backend
+   fused, B2), streams 8 (the lanes, B1) and meshshape 1 1 (the
+   session, B2): each channel's stdout lines those of its encoded
+   payloads in order, counters (240, 0, 0) a channel, the lanes' and
+   the session's stdout the same bytes (the sequential path's A/B
+   interleaving follows its reader-block framing: the moved lines
+   counted).  The card's int16 audio of the first 8 reader blocks
+   against the front end on the CPU (at most 1 in 1000 samples off by
+   1); the front end's ms a 65,536-frame block.
+18. Lanes: time_parallel_decode (B1, F = 64) over all 4096 rows of
+   fleet block 0 end to end (rolled as in 17), 201,326,592 samples:
+   3072 lanes of T = 72,704 (the slot drain) and the first 512 rows
+   (384 lanes, the dense drain); every payload in row order, no other
+   frame; the gather, B1 and drain times.  B1 on the first 64 lanes
+   against its plain version in the CPU child.  Then the command line
+   with streams 4096 on the stream as a 403 MB raw file: its stdout
+   the lines of the 32,768 encoded payloads, counters (32768, 0, 0).
+   Last, the rows end to end without the roll through the lanes and a
+   one-stream session (64 super-blocks, B2): each one's frame loss
+   printed and bounded (the shared fault, ROADMAP section 3 item 8).
+19. Session: TimeParSession on a 1 x 1 grid of the card, 4096 rows,
+   super-blocks of 49,152 (B2 at T = 56,320) over phase 4's three fleet
+   blocks: per stream the frames of phase 4; a snapshot after block 1
+   written as the CLI's .mesh.npz holds it, read back into a new
+   session that continues identically; ms a push, the snapshot's size
+   and times, a block's upload pageable and through pinned memory.  B2
+   on the first 64 rows of block 1's window against its plain version
+   in the CPU child.
+The plain versions of phase 3's lane and session shapes and of phases
+18 and 19 run after phase 19 (no timed phase shares the host with
+them), each in a spawned CPU process of its own, and are held against
+the kernels' outputs.
 Then one JSON line of the twelve kernel modes (launch counts from their
 own paths, each count set to 0 just before its path: B2 over phases
-4-5, 15 and 16, B1 in phase 7's pretiled call, B2 lobe and B1 lobe over
+4-5, 15, 16, 17 (sequential and mesh) and 19, B1 in phase 7's pretiled
+call and phases 17 (lanes) and 18, B2 lobe and B1 lobe over
 phase 8, B1 mxu and B2 mxu over phases 7m and 8m, B3 over phase 9, B4
 over phases 12 and 15, the deframer on group codes over phase 9 and on
 sample codes over phases 12 and 15, R1 and R2 over phase 14's table;
@@ -141,6 +179,7 @@ when run outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import os
 import json
 import statistics
 import subprocess
@@ -994,9 +1033,9 @@ def phase_front_full(x0):
         mine = {k: v for k, v in ms.items() if kernel in k}
         other = {k[:60]: round(v, 4) for k, v in ms.items() if kernel not in k}
         check(len(mine) == 1, f"{name}: kernels {sorted(ms)}")
-        check(max(other.values(), default=0.0) < COPY_MS,
-              f"{name}: a kernel of {max(other.values())} ms beside "
-              f"{kernel}: {other}")
+        longest = max(other.values(), default=0.0)
+        check(longest < COPY_MS,
+              f"{name}: a kernel of {longest} ms beside {kernel}: {other}")
         print(f"[10 full block] {name} on the device (torch.profiler): "
               f"{kernel} {sum(mine.values()):.3f} ms; the {len(other)} other "
               f"kernels each < {COPY_MS} ms, no copy of the block: {other}",
@@ -2025,6 +2064,681 @@ def phase_supervised(tmp: Path, blocks, per_block, main_counters):
                           save_ms=ms_save, load_ms=ms_load)
 
 
+# ---------------------------------------------------------------------------
+# Phases 17-19: the throughput modes (the IQ front end, the lanes, the
+# one-card session)
+# ---------------------------------------------------------------------------
+
+LANE_SLOTS = 64          # the lanes' frame slots: max(frameslots, 64)
+LANE_SHAPES = (56_320, 72_704)  # B1's T on the lanes: streams 4096 over
+#                          the 70-minute stream, and the default chunk_len
+SESSION_T = 4096 + FLEET_BLOCK + 3072  # B2's T in the 1 x 1 session
+PLAIN_CHECKED = 64       # lanes / rows of phases 18-19 held against plain
+UNROLLED_SB = 3 << 20    # phase 18's one-stream session: 64 super-blocks
+#                          over the 201,326,592 samples of the fleet rows,
+UNROLLED_SLOTS = 1024    # and frame slots for the 8 payloads of each of
+#                          the 65 rows that a window reaches into
+UNROLLED_LOSS = 0.01     # the share of frames either may lose there, ten
+#                          times the 0.05 % and 0.09 % read on an H100
+IQ_ROWS = 30             # fleet rows a channel of phase 17's capture
+IQ_DECIM = 4
+IQ_BLOCK = 1 << 16       # the IQ reader's block: 65,536 output frames
+IQ_CHECKED_BLOCKS = 8    # reader blocks held against the CPU front end
+# the decoder FIR's group delay (36 symmetric taps) and the IQ front end's
+# (64 taps at 48 kHz x IQ_DECIM), in samples at 48 kHz
+DECODER_DELAY = (36 - 1) / 2
+FRONT_END_DELAY = (64 - 1) / 2 / IQ_DECIM
+
+
+def grid_offset(pos: int, delay: float) -> int:
+    """The roll, 0..4 samples, that puts the bit edges of a fleet row laid
+    at absolute sample ``pos`` (on multiples of 5 within the row) where a
+    free-running DPLL expects them once filtered (``delay`` samples
+    later): at the phase PLL_CENTER.  A lane or session window cold-starts
+    its DPLL at the free-run phase PLL_INC*b mod 2^16 of its base b
+    (``parallel.timepar._lane_carry``), which drifts a 65536th of a bit
+    per bit from a 5-sample grid; a row laid without this roll may sit
+    up to half a bit from it, too far for a preamble after a lead overlap
+    without transitions (the rows' idle level) to pull in.  The fleet
+    block makes the same choice for the carried DPLL of its blocks."""
+    from gnuais_tpu_torch import constants as C
+    return min(range(5), key=lambda o: abs(
+        (C.PLL_INC * (pos + o + delay)) % 65536 - C.PLL_CENTER))
+
+
+def end_to_end(rows: np.ndarray, delay: float) -> np.ndarray:
+    """Fleet rows [R, T] laid end to end as one stream, each rolled by
+    ``grid_offset`` at its position (its first and last samples are
+    idle, so the roll moves idle samples only)."""
+    t = rows.shape[1]
+    return np.concatenate([np.roll(row, grid_offset(r * t, delay))
+                           for r, row in enumerate(rows)])
+
+
+def fm_modulate(audio: np.ndarray, decim: int) -> np.ndarray:
+    """FM-modulate int16 audio into complex64 baseband IQ at 48 kHz *
+    decim (the inverse of the discriminator; tests/test_iq_streaming.py's
+    modulator)."""
+    x = np.repeat(audio.astype(np.float64) / 32767.0, decim)
+    phase = 2 * np.pi * np.cumsum(x * 2400.0) / (48000.0 * decim)
+    return np.exp(1j * phase).astype(np.complex64)
+
+
+def expected_lines(payloads, chan: str) -> list:
+    """The stdout lines of a channel that decodes ``payloads`` in order
+    (the port's dispatcher; its NMEA seqnr rolls per channel)."""
+    from gnuais_tpu_torch.ais.dispatcher import ChannelDispatcher
+    disp = ChannelDispatcher(chan)
+    out = []
+    for p in payloads:
+        msg = disp.dispatch(np.asarray(p, dtype=np.uint8), len(p))
+        if msg is not None and msg.stdout_line:
+            out.append(msg.stdout_line)
+    return out
+
+
+def cli_run(argv, sock):
+    """``gnuais-tpu-torch argv`` in this process (its launches counted),
+    its NMEA socket at ``sock``.  Returns (rc, stdout, log text, host
+    seconds)."""
+    import io
+    import logging
+    out, summary = io.StringIO(), io.StringIO()
+    handler = logging.StreamHandler(summary)
+    log = logging.getLogger("gnuais")
+    log.setLevel(logging.INFO)
+    log.addHandler(handler)
+    try:
+        with own_socket(sock) as cli, contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            secs = time.perf_counter() - t0
+    finally:
+        log.removeHandler(handler)
+    return rc, out.getvalue(), summary.getvalue(), secs
+
+
+def cli_counters(text: str) -> dict:
+    import re
+    return {m.group(1): tuple(int(m.group(i)) for i in (2, 3, 4))
+            for m in re.finditer(r"(\w): Received correctly: (\d+) packets, "
+                                 r"wrong CRC: (\d+) packets, wrong size: "
+                                 r"(\d+) packets", text)}
+
+
+def plain_job(kind: str, x: np.ndarray, nv: int, carry, kw: dict):
+    """Run in a child process on the CPU: the plain version of B1
+    (``kind`` "B1", ``pipeline_fused_compact_reference``) or B2 ("B2",
+    ``pipeline_fused_reference``) on ``x`` [S, T] int16 from ``carry`` (a
+    list of numpy leaves in ``convert`` order).  Returns (its outputs as
+    numpy arrays, seconds)."""
+    import torch
+    torch.set_num_threads(1)
+    from gnuais_tpu_torch import convert
+    from gnuais_tpu_torch.ops import fused
+    t0 = time.perf_counter()
+    c = convert.carry_from_numpy(carry, "cpu")
+    fn = (fused.pipeline_fused_compact_reference if kind == "B1"
+          else fused.pipeline_fused_reference)
+    out = fn(torch.from_numpy(x), nv, c.history, c.dpll, c.hdlc, **kw)
+    return [t.numpy() for t in leaves(out)], time.perf_counter() - t0
+
+
+class PlainChild:
+    """``plain_job``s collected while the phases run and run by ``held``
+    once the timed phases are over, each in a spawned CPU process of its
+    own (so that no host time of a timed phase goes to them); ``held``
+    compares each with the kernel's outputs (``check``), bitwise."""
+
+    def __init__(self):
+        self.jobs = []
+
+    def submit(self, what: str, kind: str, x, nv, carry, kw, kernel_out):
+        """Queue the plain version of ``kind`` on x (a CUDA or CPU int16
+        tensor [S, T]) from ``carry`` (a PipelineCarry), to be held
+        against ``kernel_out`` (the kernel's outputs on those rows)."""
+        from gnuais_tpu_torch import convert
+        self.jobs.append((what, kind, (kind, x.cpu().contiguous().numpy(),
+                                       nv, convert.carry_to_numpy(carry), kw),
+                          [t.cpu() for t in leaves(kernel_out)]))
+
+    def held(self) -> dict:
+        """Run every job, wait for it and hold it against its kernel
+        outputs; returns {kind: max abs error} (0: bitwise, or the run
+        fails)."""
+        import multiprocessing
+        import torch
+        errs = {}
+        procs = min(len(self.jobs), os.cpu_count() or 1)
+        pool = multiprocessing.get_context("spawn").Pool(procs)
+        try:
+            running = [(what, kind, pool.apply_async(plain_job, args), kernel)
+                       for what, kind, args, kernel in self.jobs]
+            for what, kind, job, kernel in running:
+                arrays, secs = job.get(timeout=1000)
+                plain = [torch.from_numpy(a) for a in arrays]
+                errs[kind] = max(errs.get(kind, 0.0),
+                                 compare(kernel, plain, what))
+                print(f"[plain child] {what}: == the plain version on the "
+                      f"CPU ({secs:.1f} s), bitwise", flush=True)
+        finally:
+            pool.terminate()
+            pool.join()
+        return errs
+
+
+def phase_parity_lanes_shapes(child: PlainChild):
+    """B1 at the lanes' shapes (F = 64 frame slots, T = 56,320 and
+    72,704) and B2 at the session's (T = 56,320), at S = 33 (one stream
+    past a 32-stream block), n_valid T and T-333, a nonzero base, from
+    a carried history of noise, against their plain versions run in the
+    CPU child (``child``), bitwise, when it is read."""
+    import torch
+    from gnuais_tpu_torch import captures
+    from gnuais_tpu_torch.ops import fused
+    from gnuais_tpu_torch.runtime.pipeline import init_carry
+    s = 33
+    cases = [("B1", LANE_SHAPES[0], LANE_SHAPES[0] - 333),
+             ("B1", LANE_SHAPES[1], LANE_SHAPES[1]),
+             ("B2", SESSION_T, SESSION_T - 333)]
+    for kind, t, nv in cases:
+        x = torch.from_numpy(captures.mixed(s, t, seed=t + 1)).cuda()
+        c = init_carry(s, "cuda")
+        c = c._replace(history=torch.from_numpy(
+            captures.garbage(s, 36, seed=t).astype(np.float32)).cuda())
+        kw = dict(block_base=4097, lost2_lo=4097 + 4096,
+                  lost2_hi=4097 + t - 3072)
+        if kind == "B1":
+            out = fused.pipeline_fused_compact(x, nv, c.history, c.dpll,
+                                               c.hdlc, frame_slots=LANE_SLOTS,
+                                               **kw)
+            kw["frame_slots"] = LANE_SLOTS
+        else:
+            out = fused.pipeline_fused(x, nv, c.history, c.dpll, c.hdlc, **kw)
+        child.submit(f"{kind} S={s} T={t} n_valid={nv}"
+                     + (f" F={LANE_SLOTS}" if kind == "B1" else ""),
+                     kind, x, nv, c, kw, out)
+        print(f"[3 parity lanes] {kind} at S={s} T={t} n_valid={nv} ran on "
+              f"the card: {int(out[0].sum())} "
+              f"{'frames' if kind == 'B1' else 'candidates'}; held against "
+              f"the plain version in the CPU child", flush=True)
+
+
+def phase_iq(tmp: Path, blocks, expected):
+    """Phase 17: a stereo IQ capture at decim 4 (channel A: fleet rows
+    0-29 of block 0 end to end, B: rows 30-59, ``end_to_end`` with the
+    front end's delay too, FM-modulated, interleaved float32) through
+    ``cli.main`` with ``inputformat iq`` sequential (``--backend fused``,
+    B2), ``streams 8`` (the lanes, B1) and ``meshshape 1 1`` (the
+    session, B2): the same stdout and counters, each channel's lines
+    those of its encoded payloads in order.  The card's int16 audio of
+    the first IQ_CHECKED_BLOCKS reader blocks against the port's front
+    end on the CPU (the ±1 differences counted and bounded); the front
+    end's ms a block.  Returns ({kernel: launches}, its times)."""
+    import torch
+    from gnuais_tpu_torch.io.iq import IqStreamReader
+    from gnuais_tpu_torch.ops import fused
+    delay = DECODER_DELAY + FRONT_END_DELAY
+    chans = [end_to_end(blocks[0][r0:r0 + IQ_ROWS], delay)
+             for r0 in (0, IQ_ROWS)]
+    pays = [[p for r in range(r0, r0 + IQ_ROWS) for p in expected[0][r]]
+            for r0 in (0, IQ_ROWS)]
+    want = {ch: expected_lines(p, ch) for ch, p in zip("AB", pays)}
+    iq = [fm_modulate(a, IQ_DECIM) for a in chans]
+    raw = np.empty((len(iq[0]), 2, 2), dtype="<f4")
+    for c in range(2):
+        raw[:, c, 0], raw[:, c, 1] = iq[c].real, iq[c].imag
+    path = tmp / "fleet.iq"
+    raw.tofile(path)
+    del raw, iq
+    n = len(chans[0])
+    print(f"[17 iq] stereo IQ capture at decim {IQ_DECIM}: {IQ_ROWS} fleet "
+          f"rows a channel, {n} frames ({n / 48000:.1f} s), "
+          f"{path.stat().st_size} bytes of float32", flush=True)
+
+    # the front end on the card against its plain run on the CPU
+    card = IqStreamReader(path, channels=2, decim=IQ_DECIM,
+                          block_frames=IQ_BLOCK, device="cuda")
+    cpu = IqStreamReader(path, channels=2, decim=IQ_DECIM,
+                         block_frames=IQ_BLOCK, device="cpu")
+    walls, diffs, n_cmp = [], 0, 0
+    it_card, it_cpu = card.blocks(), cpu.blocks()
+    for _ in range(IQ_CHECKED_BLOCKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = next(it_card)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        d = a.astype(np.int32) - next(it_cpu).astype(np.int32)
+        check(np.abs(d).max() <= 1, "IQ audio differs by more than 1")
+        diffs += int(np.count_nonzero(d))
+        n_cmp += d.size
+    check(diffs <= n_cmp // 1000, f"{diffs} of {n_cmp} IQ audio samples "
+          "differ from the CPU front end's (bound: 1 in 1000)")
+    ms = statistics.median(walls[1:])
+    print(f"[17 iq] the front end on the card (FM discriminator, 64-tap "
+          f"decimator, int16 rounding) on {IQ_CHECKED_BLOCKS} blocks of "
+          f"{IQ_BLOCK} frames x 2 channels: {diffs} of {n_cmp} samples "
+          f"differ by 1 from the plain front end on the CPU (atan2's last "
+          f"bit), none by more; {ms:.2f} ms a block (median of "
+          f"{len(walls) - 1} after the first, host clock, upload and "
+          f"read-back included): {IQ_BLOCK / 48000 / (ms / 1e3):.0f}x real "
+          f"time", flush=True)
+
+    runs, launches = {}, {}
+    modes = {"sequential": ("", ["--backend", "fused"]),
+             "streams 8": ("streams 8\n", []),
+             "meshshape 1 1": ("meshshape 1 1\n", [])}
+    for mode, (line, extra) in modes.items():
+        conf = tmp / "iq.conf"
+        conf.write_text(f"soundchannels both\ninputformat iq\n"
+                        f"iqdecim {IQ_DECIM}\n{line}")
+        fused.pipeline_fused.launches = 0
+        fused.pipeline_fused_compact.launches = 0
+        rc, out, text, secs = cli_run(
+            ["-c", str(conf), "-l", str(path), *extra],
+            short_path(tmp / f"iq{len(runs)}.sock"))
+        launches[mode] = (fused.pipeline_fused.launches,
+                          fused.pipeline_fused_compact.launches)
+        check(rc == 0, f"iq {mode}: rc {rc}: {text[-500:]}")
+        lines = out.splitlines()
+        for ch in "AB":
+            got = [l for l in lines if l.startswith(f"ch {ch} ")]
+            check(got == want[ch], f"iq {mode} channel {ch}: {len(got)} lines, "
+                  f"{len(want[ch])} from the encoded payloads")
+        runs[mode] = (out, cli_counters(text))
+        check(runs[mode][1] == {ch: (len(p), 0, 0) for ch, p in
+                                zip("AB", pays)},
+              f"iq {mode} counters {runs[mode][1]}")
+        print(f"[17 iq] cli inputformat iq, {mode}: {len(lines)} stdout "
+              f"lines, each channel's those of its {len(pays[0])} encoded "
+              f"payloads in order; counters {runs[mode][1]}; launches B2 "
+              f"{launches[mode][0]}, B1 {launches[mode][1]}; "
+              f"{secs:.1f} s", flush=True)
+    # the lanes and the session emit in the 1020-frame block framing; the
+    # sequential path cuts each 65,536-frame reader block into 1020-frame
+    # blocks (a 256-frame block at each seam, as the JAX CLI does), so its
+    # A/B interleaving may differ while each channel's lines do not
+    check(runs["streams 8"][0] == runs["meshshape 1 1"][0],
+          "the lanes' and the session's IQ stdout differ")
+    seq, lanes = (runs[m][0].splitlines() for m in ("sequential", "streams 8"))
+    moved = sum(a != b for a, b in zip(seq, lanes))
+    print(f"[17 iq] the lanes' and the session's stdout are the same bytes; "
+          f"the sequential path's has each channel's lines in the same "
+          f"order, {moved} of {len(seq)} lines at other places in the A/B "
+          f"interleaving (its reader-block framing)", flush=True)
+    check(launches["sequential"][0] > 0 and launches["meshshape 1 1"][0] > 0
+          and launches["streams 8"] == (0, 2),
+          f"IQ launches {launches}")
+    return ({"B2": launches["sequential"][0] + launches["meshshape 1 1"][0],
+             "B1": launches["streams 8"][1]},
+            dict(front_end_ms=ms))
+
+
+def phase_lanes(tmp: Path, blocks, expected, child: PlainChild):
+    """Phase 18: time_parallel_decode (kernel B1) on one mono stream, all
+    4096 rows of fleet block 0 end to end (``end_to_end``), 201,326,592
+    samples: the default chunk_len (3072 lanes, T = 72,704, more frames
+    than the dense buffer: the slot drain) and the first 512 rows (384
+    lanes: the dense drain); every row's payloads in row order, no other
+    frame, counters 0.  B1's FrameBatch and carry on the first
+    PLAIN_CHECKED lanes against the plain version in the CPU child.  Then
+    ``cli.main`` with ``streams 4096`` on the stream written as a raw
+    file: one stdout line per line the encoded payloads give, counters
+    (32,768, 0, 0).  Last, ``unrolled_loss`` on the rows as they are.
+    Returns (B1's launches, B2's launches, the times)."""
+    import torch
+    from gnuais_tpu_torch.ops import fused
+    from gnuais_tpu_torch.parallel import timepar
+    from gnuais_tpu_torch.runtime import pipeline as pl
+    stream = end_to_end(blocks[0], DECODER_DELAY)
+    pays = [p.tobytes() for row in expected[0] for p in row]
+    drains = []
+    real_extract = pl.extract_dense
+
+    def counted(*a, **k):
+        drains.append("dense")
+        return real_extract(*a, **k)
+
+    launches, times, dense_used = 0, {}, {}
+    pl.extract_dense = counted
+    try:
+        for rows in (FLEET_STREAMS, FLEET_STREAMS // 8):
+            label = f"{rows} rows"
+            x = stream[:rows * FLEET_BLOCK]
+            fused.pipeline_fused_compact.launches = 0
+            drains.clear()
+            timings = {}
+            t0 = time.perf_counter()
+            res = timepar.time_parallel_decode(x, frame_slots=LANE_SLOTS,
+                                               device="cuda", timings=timings)
+            wall = time.perf_counter() - t0
+            launches += fused.pipeline_fused_compact.launches
+            check(fused.pipeline_fused_compact.launches == 1,
+                  f"lanes {label}: B1 launched "
+                  f"{fused.pipeline_fused_compact.launches} times")
+            got = [f.payload_bits[:f.bufferlen].tobytes() for f in res.frames]
+            n_want = rows * 8
+            check(got == pays[:n_want], f"lanes {label}: {len(got)} frames, "
+                  f"{n_want} encoded (in row order)")
+            check(len(set(res.starts)) == len(res.starts), "duplicate starts")
+            check((res.wrong_crc, res.wrong_size) == (0, 0),
+                  f"lanes {label}: counters {res.wrong_crc}, {res.wrong_size}")
+            times[label] = dict(wall_ms=wall * 1e3, **timings)
+            dense_used[label] = bool(drains)
+            print(f"[18 lanes] time_parallel_decode of {len(x)} samples "
+                  f"({len(x) / 48000 / 60:.1f} min), {label}: {res.chunks} "
+                  f"lanes of 65536 (T = {4096 + 65536 + 3072}, F = "
+                  f"{LANE_SLOTS}), 1 launch of B1, the "
+                  f"{'dense' if drains else 'slot'} drain; all {n_want} "
+                  f"payloads in row order, no duplicate, counters (0, 0); "
+                  f"gather {timings['gather_ms']:.1f} ms, B1 "
+                  f"{timings['decode_ms']:.1f} ms, drain "
+                  f"{timings['drain_ms']:.1f} ms (host clock, device "
+                  f"synchronised); {wall * 1e3:.1f} ms in all", flush=True)
+        # the dense buffer holds 8192 frames: the whole block overflows it
+        # (the slot drain), an eighth of it does not
+        check(dense_used == {f"{r} rows": r * 8 <= 8192 for r in
+                             (FLEET_STREAMS, FLEET_STREAMS // 8)},
+              f"the drains taken: dense {dense_used}")
+    finally:
+        pl.extract_dense = real_extract
+
+    # B1 on the same lanes (one more launch, not the path's) against the
+    # plain version on the first PLAIN_CHECKED lanes
+    chunk = 65_536
+    k = -(-len(stream) // chunk)
+    win = LANE_SHAPES[1]
+    lanes = timepar._gather_lanes(torch.from_numpy(stream).cuda(), k, win,
+                                  chunk, 4096)
+    carry = timepar._lane_carry(k, chunk, 4096, torch.device("cuda"))
+    kw = dict(block_base=0, lost2_lo=4096, lost2_hi=4096 + chunk)
+    args = (lanes, win, carry.history, carry.dpll, carry.hdlc)
+    ms, out = device_ms(lambda: fused.pipeline_fused_compact(
+        *args, frame_slots=LANE_SLOTS, **kw))
+    b_ms, b_by = bound((args, out), FIR_FLOPS["vpu"] * k * win)
+    times["b1_ms"], times["b1_bound_ms"] = ms, b_ms
+    print(f"[18 lanes] B1 alone on the {k} lanes of T = {win} (F = "
+          f"{LANE_SLOTS}), read in place from the gather's view: {ms:.3f} "
+          f"ms (median of 5, CUDA events; bound {b_ms:.3f} ms by {b_by}), "
+          f"{ms * 1e6 / win:.1f} ns a sample of a lane", flush=True)
+    head = pl.PipelineCarry(carry.history[:PLAIN_CHECKED],
+                            type(carry.dpll)(*(v[:PLAIN_CHECKED]
+                                               for v in carry.dpll)),
+                            type(carry.hdlc)(*(v[:PLAIN_CHECKED]
+                                               for v in carry.hdlc)))
+    child.submit(f"18 lanes: B1 on lanes 0..{PLAIN_CHECKED - 1} of {k} "
+                 f"(T = {win}, F = {LANE_SLOTS})", "B1",
+                 lanes[:PLAIN_CHECKED], win, head,
+                 dict(kw, frame_slots=LANE_SLOTS),
+                 [t[:PLAIN_CHECKED] for t in leaves(out)])
+    del lanes, out
+
+    # the CLI: streams 4096 on the stream as a raw file
+    raw = tmp / "fleet70.raw"
+    stream.astype("<i2").tofile(raw)
+    conf = tmp / "lanes.conf"
+    conf.write_text(f"soundchannels mono\nstreams {FLEET_STREAMS}\n")
+    fused.pipeline_fused_compact.launches = 0
+    rc, out, text, secs = cli_run(["-c", str(conf), "-l", str(raw)],
+                                  short_path(tmp / "lanes.sock"))
+    cli_launches = fused.pipeline_fused_compact.launches
+    launches += cli_launches
+    raw.unlink()
+    check(rc == 0, f"streams {FLEET_STREAMS}: rc {rc}: {text[-500:]}")
+    want_lines = expected_lines([p for row in expected[0] for p in row], "A")
+    check(out.splitlines() == want_lines,
+          f"streams {FLEET_STREAMS}: {len(out.splitlines())} stdout lines, "
+          f"{len(want_lines)} from the encoded payloads")
+    check(cli_counters(text) == {"A": (len(pays), 0, 0)},
+          f"streams {FLEET_STREAMS} counters {cli_counters(text)}")
+    check(cli_launches == 1, f"the CLI launched B1 {cli_launches} times")
+    times["cli_s"] = secs
+    print(f"[18 lanes] cli streams {FLEET_STREAMS} on the {len(stream) * 2} "
+          f"byte raw file: {FLEET_STREAMS} lanes (T = "
+          f"{4096 + FLEET_BLOCK + 3072}), 1 launch of B1; "
+          f"{len(want_lines)} stdout lines, those of the {len(pays)} encoded "
+          f"payloads in order; counters ({len(pays)}, 0, 0); {secs:.1f} s "
+          f"(host clock, the envelope scan and the dispatch included)",
+          flush=True)
+    b1, b2, times["unrolled"] = unrolled_loss(blocks[0], expected[0])
+    return launches + b1, b2, times
+
+
+def unrolled_loss(rows: np.ndarray, row_payloads: list):
+    """The lanes' shared frame loss (ROADMAP section 3, item 8) at full
+    width: the fleet rows [R, T] laid end to end as they are, without
+    ``end_to_end``'s roll, through ``time_parallel_decode`` (3072 lanes,
+    one launch of B1) and through a one-stream ``TimeParSession`` (the
+    same stream in UNROLLED_SB super-blocks, B2 once a super-block),
+    which decodes as the sequential chain does.  Each decoded frame is
+    placed by its start's row and its payload among the row's
+    (``row_payloads``): no frame that is not, none twice.  Frames are
+    lost after idle stretches, where a DPLL free-runs off the next row's
+    bit grid: the session's carried one (as the reference's chain does)
+    mostly at a row's first frame, the lanes' cold ones also after their
+    lead overlaps.  Prints the losses, and bounds each at UNROLLED_LOSS
+    (the session's against the encoded payloads, the lanes' against the
+    session's frames), so that a growth of the shared fault shows.
+    Returns (B1's launches, B2's launches, the counts)."""
+    import collections
+    from gnuais_tpu_torch.ops import fused
+    from gnuais_tpu_torch.parallel import timepar
+    from gnuais_tpu_torch.parallel.mesh import make_grid_mesh
+    stream = rows.reshape(-1)
+    t = rows.shape[1]
+    chunk = 65_536
+    fused.pipeline_fused_compact.launches = 0
+    t0 = time.perf_counter()
+    res = timepar.time_parallel_decode(stream, frame_slots=LANE_SLOTS,
+                                       device="cuda")
+    lanes_s = time.perf_counter() - t0
+    b1 = fused.pipeline_fused_compact.launches
+    check(b1 == 1, f"unrolled lanes: B1 launched {b1} times")
+
+    fused.pipeline_fused.launches = 0
+    t0 = time.perf_counter()
+    sess = timepar.TimeParSession(make_grid_mesh(1, 1, device="cuda"), 1,
+                                  UNROLLED_SB, frame_slots=UNROLLED_SLOTS)
+    ses = []
+    pushes = -(-len(stream) // UNROLLED_SB)
+    padded = np.zeros(pushes * UNROLLED_SB, np.int16)
+    padded[:len(stream)] = stream
+    for b in range(pushes):
+        out = sess.push(padded[None, b * UNROLLED_SB:(b + 1) * UNROLLED_SB])
+        ses += out[0] if out else []
+    ses += sess.flush(n_valid=len(stream) - (pushes - 1) * UNROLLED_SB)[0]
+    ses_s = time.perf_counter() - t0
+    b2 = fused.pipeline_fused.launches
+    check(b2 == pushes, f"unrolled session: B2 launched {b2} times")
+
+    index = [{p.tobytes(): i for i, p in enumerate(row)}
+             for row in row_payloads]
+
+    def placed(starts, frames):
+        """{(row, index in the row): start} of the decoded frames, and
+        how many are no payload of their row or come twice."""
+        out, bad = {}, 0
+        for st, f in zip(starts, frames):
+            r = st // t
+            i = (index[r].get(f.payload_bits[:f.bufferlen].tobytes())
+                 if 0 <= r < len(index) else None)
+            if i is None or (r, i) in out:
+                bad += 1
+            else:
+                out[(r, i)] = st
+        return out, bad
+
+    got_s, bad_s = placed([st for st, _e, _f in ses], [f for *_x, f in ses])
+    got_l, bad_l = placed(res.starts, res.frames)
+    encoded = {(r, i) for r, row in enumerate(row_payloads)
+               for i in range(len(row))}
+    lost_s = encoded - set(got_s)
+    lost_l = encoded - set(got_l)
+    only_s = set(got_s) - set(got_l)       # the lanes' loss against it
+    only_l = set(got_l) - set(got_s)
+    row_max = max(collections.Counter(r for r, _i in lost_s).values(),
+                  default=0)
+    lane_max = max(collections.Counter(got_s[k] // chunk
+                                       for k in only_s).values(), default=0)
+    counts = dict(
+        encoded=len(encoded), session=len(got_s), lanes=len(got_l),
+        session_lost=len(lost_s), lanes_lost=len(lost_l),
+        lanes_lost_vs_session=len(only_s), session_lost_vs_lanes=len(only_l),
+        session_lost_first=sum(i == 0 for _r, i in lost_s),
+        lanes_lost_first=sum(i == 0 for _r, i in lost_l),
+        session_counters=(sess.wrong_crc[0], sess.wrong_size[0]),
+        lanes_counters=(res.wrong_crc, res.wrong_size),
+        lanes_s=lanes_s, session_s=ses_s)
+    print(f"[18 lanes] unrolled (the rows end to end without the roll, "
+          f"{len(stream)} samples, {len(encoded)} payloads encoded): the "
+          f"session ({pushes} super-blocks of {UNROLLED_SB}, {b2} launches "
+          f"of B2, {ses_s:.1f} s) decodes {len(got_s)}, loses "
+          f"{len(lost_s)} ({counts['session_lost_first']} a row's first, "
+          f"at most {row_max} a row), wrong CRC "
+          f"{sess.wrong_crc[0]}, wrong size {sess.wrong_size[0]}; the "
+          f"lanes ({res.chunks} of {chunk}, 1 launch of B1, {lanes_s:.2f} s) "
+          f"decode {len(got_l)}, lose {len(lost_l)} "
+          f"({counts['lanes_lost_first']} a row's first), wrong CRC "
+          f"{res.wrong_crc}, wrong size {res.wrong_size}; the lanes lose "
+          f"{len(only_s)} of the session's frames ({len(only_s) / max(len(got_s), 1):.4%}"
+          f", at most {lane_max} a lane) and decode "
+          f"{len(only_l)} it loses (host clock)", flush=True)
+    check(bad_s == 0 and bad_l == 0,
+          f"unrolled: frames that are no payload of their row or come "
+          f"twice: session {bad_s}, lanes {bad_l}")
+    check(len(lost_s) <= UNROLLED_LOSS * len(encoded),
+          f"unrolled session: lost {len(lost_s)} of {len(encoded)} frames")
+    check(len(only_s) <= UNROLLED_LOSS * len(got_s),
+          f"unrolled lanes: lost {len(only_s)} of the session's "
+          f"{len(got_s)} frames")
+    return b1, b2, counts
+
+
+def phase_session(tmp: Path, blocks, per_block, child: PlainChild):
+    """Phase 19: TimeParSession on a 1 x 1 grid of the card, 4096 rows,
+    super-blocks of 49,152 samples, over phase 4's three fleet blocks
+    (kernel B2 at T = 56,320): per stream the union of its frames equals
+    phase 4's.  A snapshot after block 1 restored into a new session
+    continues identically.  A block's upload timed as the session makes
+    it and as a prefetch would (pinned staging, then ``non_blocking``).
+    B2 on the first PLAIN_CHECKED rows of the second push's window
+    against the plain version in the CPU child.  Returns (B2's
+    launches, the times)."""
+    import torch
+    from gnuais_tpu_torch import constants as C
+    from gnuais_tpu_torch.ops import fused
+    from gnuais_tpu_torch.parallel.mesh import make_grid_mesh
+    from gnuais_tpu_torch.parallel.timepar import TimeParSession
+    from gnuais_tpu_torch.runtime.pipeline import init_carry
+    mesh = make_grid_mesh(1, 1, device="cuda")
+    path = tmp / "session.npz"
+
+    def session():
+        return TimeParSession(mesh, FLEET_STREAMS, FLEET_BLOCK)
+
+    def collect(got, out):
+        if out:
+            for i, lst in enumerate(out):
+                got[i] += [f.payload_bits[:f.bufferlen].tobytes()
+                           for _s, _e, f in lst]
+
+    fused.pipeline_fused.launches = 0
+    sess = session()
+    got = [[] for _ in range(FLEET_STREAMS)]
+    push_ms = []
+    for b, x in enumerate(blocks):
+        ms, out = host_ms(lambda: sess.push(x))
+        push_ms.append(ms)
+        collect(got, out)
+        if b == 1:
+            # the snapshot as the CLI's .mesh.npz holds it, written at once
+            # (its lists go on changing in the session)
+            ms_save, _ = host_ms(lambda: np.savez(
+                path, sess=np.array(sess.snapshot(), dtype=object)))
+            after_snap = [list(g) for g in got]
+    ms, out = host_ms(lambda: sess.flush())
+    push_ms.append(ms)
+    collect(got, out)
+    launches = fused.pipeline_fused.launches
+    check(launches == len(blocks), f"the session launched B2 {launches} times")
+    want = [sum((per_block[b][i] for b in range(len(blocks))), [])
+            for i in range(FLEET_STREAMS)]
+    check(got == want, "the session's frames differ from phase 4's")
+    total = sum(map(len, got))
+    check((sum(sess.received), sum(sess.wrong_crc), sum(sess.wrong_size))
+          == (total, 0, 0), "the session's counters")
+    # the snapshot read back into a new session
+    ms_load, loaded = host_ms(lambda: np.load(path, allow_pickle=True)[
+        "sess"].item())
+    size = path.stat().st_size
+    path.unlink()
+    fused.pipeline_fused.launches = 0
+    again = session()
+    again.restore(loaded)
+    cont = [list(g) for g in after_snap]
+    collect(cont, again.push(blocks[2]))
+    collect(cont, again.flush())
+    launches += fused.pipeline_fused.launches
+    check(cont == got, "the restored session's continuation differs")
+    check((again.received, again.wrong_crc, again.wrong_size)
+          == (sess.received, sess.wrong_crc, sess.wrong_size),
+          "the restored session's counters")
+    # what an upload prefetch could hide: a block's upload as the session
+    # makes it (pageable ``.to``) against a copy into pinned memory and a
+    # ``non_blocking`` copy from there, which a prefetch would overlap
+    # with the step; in turn, five times each
+    pinned = torch.empty(blocks[1].shape, dtype=torch.int16, pin_memory=True)
+    up_ms, stage_ms, h2d_ms = [], [], []
+    for _ in range(5):
+        up_ms.append(host_ms(lambda: torch.from_numpy(blocks[1]).cuda())[0])
+        stage_ms.append(host_ms(lambda: np.copyto(pinned.numpy(),
+                                                  blocks[1]))[0])
+        h2d_ms.append(host_ms(lambda: pinned.to("cuda", non_blocking=True))[0])
+    up = {k: statistics.median(v) for k, v in
+          (("pageable_ms", up_ms), ("stage_ms", stage_ms), ("h2d_ms", h2d_ms))}
+    print(f"[19 session] a block's upload ({blocks[1].nbytes} bytes, medians "
+          f"of 5 in turn, host clock): pageable {up['pageable_ms']:.1f} ms (the "
+          f"session's); into pinned memory {up['stage_ms']:.1f} ms, then "
+          f"non_blocking to the card {up['h2d_ms']:.1f} ms", flush=True)
+    # B2 on the second push's window (one more launch, not the path's)
+    # against the plain version on its first PLAIN_CHECKED rows
+    prev = torch.from_numpy(blocks[0][:, -4096:]).cuda()
+    head = torch.from_numpy(blocks[2][:, :3072]).cuda()
+    win = torch.cat([prev, torch.from_numpy(blocks[1]).cuda(), head], dim=1)
+    base = FLEET_BLOCK - 4096
+    c = init_carry(FLEET_STREAMS, "cuda")
+    c = c._replace(dpll=c.dpll._replace(pll=torch.full(
+        (FLEET_STREAMS,), C.PLL_INC * (base % 65536) % 65536,
+        dtype=torch.int32, device="cuda")))
+    kw = dict(block_base=base, lost2_lo=FLEET_BLOCK,
+              lost2_hi=2 * FLEET_BLOCK)
+    args = (win, SESSION_T, c.history, c.dpll, c.hdlc)
+    ms_b2, out = device_ms(lambda: fused.pipeline_fused(*args, **kw))
+    b_ms, b_by = bound((args, out),
+                       FIR_FLOPS["vpu"] * FLEET_STREAMS * SESSION_T)
+    print(f"[19 session] B2 alone on block 1's window [{FLEET_STREAMS}, "
+          f"{SESSION_T}]: {ms_b2:.3f} ms (median of 5, CUDA events; bound "
+          f"{b_ms:.3f} ms by {b_by})", flush=True)
+    n = PLAIN_CHECKED
+    child.submit(f"19 session: B2 on rows 0..{n - 1} of push 2's window "
+                 f"(T = {SESSION_T})", "B2", win[:n], SESSION_T,
+                 type(c)(c.history[:n], type(c.dpll)(*(v[:n] for v in c.dpll)),
+                         type(c.hdlc)(*(v[:n] for v in c.hdlc))),
+                 kw, [t[:n] for t in leaves(out)])
+    print(f"[19 session] TimeParSession(1 x 1 on the card, {FLEET_STREAMS} "
+          f"rows, super-block {FLEET_BLOCK}, T = {SESSION_T}) over the "
+          f"{len(blocks)} fleet blocks: {total} frames, per stream those of "
+          f"phase 4; counters ({total}, 0, 0); push "
+          + ", ".join(f"{m:.1f}" for m in push_ms[:-1])
+          + f" ms, flush {push_ms[-1]:.1f} ms (host clock, synchronised; "
+          f"the first push holds its block); a snapshot after block 1 "
+          f"({size} bytes: write {ms_save:.1f} ms, read {ms_load:.1f} ms) "
+          f"restored into a new session continues identically; B2 launches "
+          f"{launches}", flush=True)
+    return launches, dict(push_ms=push_ms, save_ms=ms_save, load_ms=ms_load,
+                          size=size, b2_ms=ms_b2, b2_bound_ms=b_ms, **up)
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2054,6 +2768,10 @@ def main() -> int:
     err2, err1 = max(err2, edges["vpu"][0]), max(err1, edges["vpu"][1])
     err2l, err1l = max(err2l, edges["lobe"][0]), max(err1l, edges["lobe"][1])
     err2m, err1m = max(err2m, edges["mxu"][0]), max(err1m, edges["mxu"][1])
+    # the plain versions of phases 3 (the lanes' and the session's
+    # shapes), 18 and 19 run in CPU children after the timed phases
+    child = PlainChild()
+    timed("3 parity lanes", phase_parity_lanes_shapes, child)
 
     # the main path: BatchPipeline and the command line, kernel B2
     fused.pipeline_fused.launches = 0
@@ -2128,6 +2846,14 @@ def main() -> int:
         sup_launches, sup = timed("16 supervised", phase_supervised,
                                   Path(tmp), blocks, per_block,
                                   main_result[1])
+        # the throughput modes, each with its counts set to 0 before it
+        # and read after it
+        iq_launches, iq_times = timed("17 iq", phase_iq, Path(tmp), blocks,
+                                      expected)
+        lane_launches, lane_b2, lane_times = timed(
+            "18 lanes", phase_lanes, Path(tmp), blocks, expected, child)
+        ses_launches, ses_times = timed("19 session", phase_session,
+                                        Path(tmp), blocks, per_block, child)
     launches2 += station["B2"] + sup_launches
     launches4 += station["B4"]
     launches_hs += station["deframer"]
@@ -2143,6 +2869,20 @@ def main() -> int:
           f"ms, read {sup['load_ms']:.2f} ms; launches with phases 15-16: "
           f"B2 {launches2}, B4 {launches4}, the deframer on sample codes "
           f"{launches_hs}", flush=True)
+    err_child = timed("3, 18, 19 against plain", child.held)
+    launches2 += iq_launches["B2"] + lane_b2 + ses_launches
+    launches1 += iq_launches["B1"] + lane_launches
+    lanes_full = lane_times[f"{FLEET_STREAMS} rows"]
+    print(f"[19 session] on {card}: the IQ front end "
+          f"{iq_times['front_end_ms']:.2f} ms a {IQ_BLOCK}-frame block; the "
+          f"lanes over {FLEET_STREAMS} rows: gather "
+          f"{lanes_full['gather_ms']:.1f} ms, B1 "
+          f"{lanes_full['decode_ms']:.1f} ms, drain "
+          f"{lanes_full['drain_ms']:.1f} ms; the CLI's streams "
+          f"{FLEET_STREAMS} {lane_times['cli_s']:.1f} s; the session "
+          f"{statistics.median(ses_times['push_ms'][1:-1]):.1f} ms a push; "
+          f"launches with phases 17-19: B2 {launches2}, B1 {launches1}",
+          flush=True)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "gnuais_tpu")
@@ -2153,13 +2893,13 @@ def main() -> int:
     src = "gnuais_tpu_torch/csrc/"
     rows = [
         ("pipeline_fused", "pipeline_fused.cu", "gnuais_tpu/ops/fused.py:1031",
-         launches2, full["B2"], max(err2, err2f)),
+         launches2, full["B2"], max(err2, err2f, err_child.get("B2", 0.0))),
         ("pipeline_fused_lobe", "pipeline_fused.cu",
          "gnuais_tpu/ops/fused.py:1031", lobe_launches["B2"],
          full_lobe["B2"], err2l),
         ("pipeline_compact", "pipeline_compact.cu",
          "gnuais_tpu/ops/fused.py:1261", launches1, full["B1"],
-         max(err1, err1f)),
+         max(err1, err1f, err_child.get("B1", 0.0))),
         ("pipeline_compact_lobe", "pipeline_compact.cu",
          "gnuais_tpu/ops/fused.py:1261", lobe_launches["B1"],
          full_lobe["B1"], err1l),

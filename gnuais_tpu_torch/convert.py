@@ -6,17 +6,20 @@ eight HDLC variables, the register), so the leaves of
 ``jax.tree.leaves(carry)`` resume in this package and the other way
 round.  The register and frame words are ``uint32`` in numpy and the
 same bit patterns as ``int32`` here; they cross with ``view``, never a
-value cast.
+value cast.  The IQ front end's carry crosses as the JAX ``IqState``
+leaves (last_i, last_q, fir_history), and a ``TimeParSession`` snapshot
+as numpy arrays and Python values under the JAX class's keys.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Any, List, Sequence
 
 import numpy as np
 import torch
 
 from .ops.demod import DpllState, FrameBatch, HdlcState
+from .ops.discriminator import IqState
 from .runtime.pipeline import PipelineCarry
 
 N_LEAVES = 1 + len(DpllState._fields) + len(HdlcState._fields)
@@ -64,3 +67,40 @@ def frames_to_numpy(frames: FrameBatch) -> FrameBatch:
     JAX FrameBatch)."""
     return FrameBatch(*(_to_numpy(x, as_uint32=(name == "words"))
                         for name, x in zip(FrameBatch._fields, frames)))
+
+
+def iq_state_to_numpy(state: IqState) -> List[np.ndarray]:
+    """The IQ front end's carry as the JAX ``IqState`` leaves (last_i
+    [S], last_q [S], fir_history [S, ntaps], float32)."""
+    return [_to_numpy(x) for x in state]
+
+
+def iq_state_from_numpy(leaves: Sequence[np.ndarray],
+                        device: torch.device | str) -> IqState:
+    """An ``IqState`` on ``device`` from the JAX ``IqState``'s leaves."""
+    if len(leaves) != len(IqState._fields):
+        raise ValueError(f"expected {len(IqState._fields)} IqState leaves, "
+                         f"got {len(leaves)}")
+    return IqState(*(_to_torch(np.asarray(a, dtype=np.float32), device)
+                     for a in leaves))
+
+
+def _plain(v: Any) -> Any:
+    """A snapshot value as numpy or Python: arrays (tensors, JAX arrays)
+    as numpy, lists as lists of Python ints, the rest as it is."""
+    if isinstance(v, torch.Tensor):
+        return _to_numpy(v)
+    if isinstance(v, (list, tuple)):
+        return [int(x) for x in v]
+    if hasattr(v, "__array__") and not isinstance(v, np.ndarray):
+        return np.asarray(v)
+    if isinstance(v, np.integer):
+        return int(v)
+    return v
+
+
+def snapshot_to_numpy(snapshot: dict) -> dict:
+    """A ``TimeParSession.snapshot()`` of either package with nothing in
+    it but numpy arrays and Python values, under the same keys: what a
+    ``.mesh.npz`` holds, and what either package's ``restore`` takes."""
+    return {k: _plain(v) for k, v in snapshot.items()}

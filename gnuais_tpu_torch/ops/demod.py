@@ -452,3 +452,40 @@ def compact_candidates(frames: FrameBatch, cand_valid: torch.Tensor,
         dropped=frames.dropped + n_over,
         crcfail=frames.crcfail,
     )
+
+
+class DenseFrames(NamedTuple):
+    """Cross-stream dense frame buffer: only the frames that exist travel
+    back to the host (a FrameBatch reads back S*frame_slots slots,
+    occupied or not)."""
+    words: torch.Tensor     # [CAP, REG_WORDS] int32 (uint32 bits)
+    length: torch.Tensor    # [CAP] int32
+    start: torch.Tensor     # [CAP] int32
+    end: torch.Tensor       # [CAP] int32 stop-flag (emission) position
+    stream: torch.Tensor    # [CAP] int32 source stream id (-1: empty)
+    total: torch.Tensor     # scalar int32 frames present (<= CAP)
+    over: torch.Tensor      # scalar int32 frames dropped (total beyond CAP)
+
+
+def dense_frames(frames: FrameBatch, cap: int) -> DenseFrames:
+    """Compact a FrameBatch's occupied slots (stream-major arrival order)
+    into one dense [cap] buffer on the device.
+
+    A stable argsort of the "absent" mask puts the present slots first in
+    their flat order, so output j is the j-th frame overall; the gather
+    that follows touches only ``cap`` rows."""
+    s, f = frames.length.shape
+    dev = frames.length.device
+    present = (torch.arange(f, device=dev)[None, :]
+               < frames.count[:, None]).reshape(-1)
+    perm = torch.argsort((~present).to(torch.uint8), stable=True)[:cap]
+    ok = present[perm]                                  # [cap]
+    w = torch.where(ok[:, None], frames.words.reshape(s * f, -1)[perm], 0)
+    ln = torch.where(ok, frames.length.reshape(-1)[perm], 0)
+    st = torch.where(ok, frames.start.reshape(-1)[perm], 0)
+    en = torch.where(ok, frames.end.reshape(-1)[perm], 0)
+    sid = torch.where(ok, perm // f, -1).to(_I32)
+    total = frames.count.sum().to(_I32)
+    return DenseFrames(words=w, length=ln, start=st, end=en, stream=sid,
+                       total=torch.clamp(total, max=cap),
+                       over=torch.clamp(total - cap, min=0))

@@ -314,6 +314,56 @@ def extract_frames(frames: demod.FrameBatch) -> List[List[Frame]]:
     return out
 
 
+def _pack_dense(dense: demod.DenseFrames, bucket: int) -> torch.Tensor:
+    """One flat int32 tensor of the first ``bucket`` dense rows' words,
+    length, start, end and stream, so that the host drain costs one
+    device-to-host copy instead of five."""
+    return torch.cat([dense.words[:bucket].reshape(-1),
+                      dense.length[:bucket], dense.start[:bucket],
+                      dense.end[:bucket], dense.stream[:bucket]])
+
+
+def extract_dense(dense: demod.DenseFrames, n_streams: int,
+                  total: Optional[int] = None
+                  ) -> List[List[Tuple[int, int, Frame]]]:
+    """Host drain of a ``demod.DenseFrames``: per-stream lists of
+    (start, end, Frame) in arrival order.
+
+    ``total`` is read first unless the caller has it (it usually read
+    ``over`` beside it); then one packed copy of the occupied rows,
+    rounded up to a power of two (``_pack_dense``).  The native drain
+    (the port's copy) sees each dense row as a one-slot pseudo-stream."""
+    if total is None:
+        total = int(dense.total)
+    out: List[List[Tuple[int, int, Frame]]] = [[] for _ in range(n_streams)]
+    if total == 0:
+        return out
+    cap = dense.length.shape[0]
+    bucket = 1
+    while bucket < total:
+        bucket *= 2
+    bucket = min(bucket, cap)
+    nw = dense.words.shape[1]
+    flat = _pack_dense(dense, bucket).cpu().numpy()
+    words = flat[:bucket * nw].reshape(bucket, nw).view(np.uint32)
+    length, start, end, stream = flat[bucket * nw:].reshape(4, bucket)
+    from .. import native
+    if native.available():
+        counts = np.ones(total, dtype=np.int32)
+        for row, payload, flen, ok in native.drain_frames(
+                words[:total, None, :], length[:total, None], counts):
+            out[int(stream[row])].append(
+                (int(start[row]), int(end[row]), Frame(payload, flen, ok)))
+    else:
+        for j in range(total):
+            flen = int(length[j])
+            raw = _reg_to_bits(words[j], flen + C.FRAME_TAIL_BITS)
+            ok, payload = crc_check_and_extract(raw, flen)
+            out[int(stream[j])].append(
+                (int(start[j]), int(end[j]), Frame(payload, flen, ok)))
+    return out
+
+
 @dataclass
 class StreamCounters:
     receivedframes: int = 0

@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -98,28 +99,30 @@ def test_cli_default_device_is_cuda(tmp_path):
     assert "torch.cuda.is_available() is False" in res.stderr
 
 
-# (directive as the log names it, its config line; None: set on the
-# Config itself, as the JAX package's --cluster flag does)
+# case: (directive as the log names it, its config line; None: set on
+# the Config itself, as the JAX package's --cluster flag does).  A mesh
+# of one device (meshshape 1 1) is ported; more devices are refused
 REFUSED = {
-    "inputformat iq": "inputformat iq",
-    "streams": "streams 4",
-    "meshshape": "meshshape 2 4",
-    "cluster": None,
+    "meshshape": ("meshshape", "meshshape 2 4"),
+    "meshshape 1 2": ("meshshape", "meshshape 1 2"),
+    "meshshape 2 1": ("meshshape", "meshshape 2 1"),
+    "cluster": ("cluster", None),
 }
 
 
-@pytest.mark.parametrize("directive", sorted(REFUSED))
-def test_cli_refuses_unhonoured_directive(directive, tmp_path, caplog):
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_cli_refuses_unhonoured_directive(case, tmp_path, caplog):
     """A config that sets a directive whose path is not ported is refused
-    before anything is decoded: rc 1, the directive named in the log,
-    no message line."""
+    before anything is decoded: rc 1, the directive named in the log
+    (for a mesh, with the devices it asks for), no message line."""
     from gnuais_tpu_torch import cli
     from gnuais_tpu_torch.config import read_config
+    directive, line = REFUSED[case]
     assert directive in {name for name, _ in cli.UNHONOURED}
     conf = tmp_path / "gnuais.conf"
-    conf.write_text("soundchannels mono\n" + (REFUSED[directive] or "") + "\n")
+    conf.write_text("soundchannels mono\n" + (line or "") + "\n")
     cfg = read_config(str(conf))
-    if REFUSED[directive] is None:
+    if line is None:
         cfg.cluster_coordinator, cfg.cluster_nprocs = "localhost:1234", 2
     cfg.sound_in_file = str(FIX / "standard_capture.raw")
     out = []
@@ -135,13 +138,21 @@ def test_cli_refuses_unhonoured_directive(directive, tmp_path, caplog):
         rc = cli.run_decode(cfg, "cpu", out_stream=Sink())
     assert rc == 1
     assert directive in caplog.text
+    if line:
+        s_ax, t_ax = map(int, line.split()[1:])
+        assert f"over {s_ax * t_ax} devices" in caplog.text
     assert out == []
 
 
 def test_cli_unhonoured_is_exactly_the_unported_paths():
+    """The IQ input, the lanes (``streams``) and a mesh of one device are
+    ported; a mesh of several devices and the cluster are not."""
     from gnuais_tpu_torch import cli
-    assert [name for name, _ in cli.UNHONOURED] == [
-        "inputformat iq", "streams", "meshshape", "cluster"]
+    from gnuais_tpu_torch.config import Config
+    assert [name for name, _ in cli.UNHONOURED] == ["meshshape", "cluster"]
+    ported = Config()
+    ported.input_format, ported.streams, ported.meshshape = "iq", 4, (1, 1)
+    assert not any(is_set(ported) for _, is_set in cli.UNHONOURED)
 
 
 class Sentences:
@@ -357,14 +368,32 @@ def test_cli_honours_directive(directive, tmp_path, monkeypatch):
 
 
 def test_cli_refuses_iq_input_in_a_subprocess(tmp_path):
-    """The reproduction of the fault: float32 IQ bytes behind
-    ``inputformat iq`` are no longer decoded as int16 audio."""
+    """The reproduction of a repaired fault: float32 IQ bytes
+    behind ``inputformat iq`` are never decoded as int16 audio.  Since
+    the IQ front end is ported they go through it (the log says so, and
+    the sample count is the IQ frames', not the bytes' over 2), and the
+    modulated message comes out; a mesh of more devices than the process
+    has is still refused before anything is read."""
+    from gnuais_tpu_torch.golden import encoder as E
+    audio = E.synthesize_capture([E.make_type18(258123456, 60.39, 5.32)])
+    x = np.repeat(audio.astype(np.float64) / 32767.0, 4)
+    phase = 2 * np.pi * np.cumsum(x * 2400.0) / (48000.0 * 4)
+    iq = np.exp(1j * phase).astype(np.complex64)
+    raw = np.empty(len(iq) * 2, dtype="<f4")
+    raw[0::2], raw[1::2] = iq.real, iq.imag
+    path = tmp_path / "x.iq"
+    raw.tofile(path)
     conf = tmp_path / "iq.conf"
     conf.write_text("soundchannels mono\ninputformat iq\n")
-    iq = tmp_path / "x.iq"
-    iq.write_bytes(bytes(8 * 4800))
+    res = _cli("--device", "cpu", "--backend", "golden", "-c", str(conf),
+               "-l", str(path), cwd=tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert "Streaming IQ from file" in res.stderr
+    assert f"Processed {len(audio)} samples" in res.stderr
+    assert "type 18 mmsi 258123456" in res.stdout
+    conf.write_text("soundchannels mono\ninputformat iq\nmeshshape 2 4\n")
     res = _cli("--device", "cpu", "--backend", "exact", "-c", str(conf),
-               "-l", str(iq), cwd=tmp_path)
+               "-l", str(path), cwd=tmp_path)
     assert res.returncode == 1
     assert res.stdout == ""
-    assert "inputformat iq" in res.stderr
+    assert "meshshape" in res.stderr

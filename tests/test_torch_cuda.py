@@ -688,3 +688,102 @@ def test_card_routes_on_fixture_blocks(cuda, backend):
         frames += int(kf.count.sum())
         blocks += 1
     assert (blocks, frames) == (73, 49)
+
+
+# the throughput modes' shapes: (kernel, T); B1 with the lanes' 64 frame
+# slots, T = 56,320 (streams 4096 over 70 minutes) and 72,704 (the default
+# chunk_len); B2 at the 1 x 1 session's T = 4096 + 49,152 + 3072
+THROUGHPUT_SHAPES = {"B1_T56320": ("B1", 56_320), "B1_T72704": ("B1", 72_704),
+                     "B2_T56320": ("B2", 56_320)}
+
+
+@pytest.mark.parametrize("case", sorted(THROUGHPUT_SHAPES))
+def test_kernels_at_the_throughput_shapes(cuda, case):
+    kind, t = THROUGHPUT_SHAPES[case]
+    s = 37
+    x = torch.from_numpy(captures.mixed(s, t, seed=t)).to(cuda)
+    c = init_carry(s, cuda)
+    c = c._replace(history=torch.from_numpy(
+        captures.garbage(s, FIR_LEN, seed=t + 1).astype(np.float32)).to(cuda))
+    kw = dict(block_base=4097, lost2_lo=8193, lost2_hi=4097 + t - 3072)
+    args = (x, t - 333, c.history, c.dpll, c.hdlc)
+    if kind == "B1":
+        k, p = _pair(*args[:2], c, frame_slots=64, **kw)
+    else:
+        before = fused.pipeline_fused.launches
+        k = fused.pipeline_fused(*args, **kw)
+        assert fused.pipeline_fused.launches == before + 1
+        p = fused.pipeline_fused_reference(*args, **kw)
+    _assert_same(k, p)
+    assert int(k[0].sum()) > 0
+
+
+def _rows_stream(n_rows: int, t: int, seed: int) -> np.ndarray:
+    """n_rows noisy encoder captures of t samples laid end to end."""
+    return captures.noisy_frames(n_rows, t, seed=seed).reshape(-1)
+
+
+def test_lanes_on_card_match_cpu(cuda):
+    """time_parallel_decode on 64 lanes: kernel B1 on the card (one
+    launch) gives the CPU plain version's frames and counters, through
+    the dense and the slot drain."""
+    from gnuais_tpu_torch.parallel.timepar import time_parallel_decode
+    stream = _rows_stream(64, 8192, seed=3)
+    for cap in (8192, 4):
+        before = fused.pipeline_fused_compact.launches
+        card = time_parallel_decode(stream, chunk_len=8192, dense_cap=cap,
+                                    device=cuda)
+        assert fused.pipeline_fused_compact.launches == before + 1
+        cpu = time_parallel_decode(stream, chunk_len=8192, dense_cap=cap,
+                                   device="cpu")
+        assert card.chunks == 64 and len(card.frames) > 64
+        assert (card.starts, card.ends, card.wrong_crc, card.wrong_size,
+                card.peak) == (cpu.starts, cpu.ends, cpu.wrong_crc,
+                               cpu.wrong_size, cpu.peak)
+        assert [f.payload_bits.tobytes() for f in card.frames] == \
+            [f.payload_bits.tobytes() for f in cpu.frames]
+
+
+def test_session_on_card_matches_cpu(cuda):
+    """TimeParSession on a 1 x 1 grid of the card, 64 rows, 4096-sample
+    super-blocks: kernel B2 once a decoded block, the CPU's frames and
+    counters, and a snapshot that restores."""
+    from gnuais_tpu_torch.parallel.mesh import make_grid_mesh
+    from gnuais_tpu_torch.parallel.timepar import TimeParSession
+    x = captures.noisy_frames(64, 4 * 4096, seed=4)
+    res = []
+    for dev in (cuda, "cpu"):
+        sess = TimeParSession(make_grid_mesh(1, 1, device=dev), 64, 4096)
+        before = fused.pipeline_fused.launches
+        got = []
+        for b in range(4):
+            out = sess.push(x[:, b * 4096:(b + 1) * 4096])
+            if out:
+                got.append(out)
+        got.append(sess.flush(n_valid=4000))
+        if dev == cuda:
+            assert fused.pipeline_fused.launches == before + 4
+        res.append(([[(s, e, f.payload_bits.tobytes()) for s, e, f in lst]
+                     for out in got for lst in out],
+                    (sess.received, sess.wrong_crc, sess.wrong_size,
+                     sess.last_peak)))
+    assert res[0] == res[1]
+    assert sum(res[0][1][0]) > 64
+
+
+def test_iq_front_end_on_card_matches_cpu(cuda, tmp_path):
+    """The IQ reader on the card: its int16 audio within one count of the
+    CPU's on at most 1 sample in 1000 (atan2's last bit)."""
+    from gnuais_tpu_torch.io.iq import IqStreamReader
+    rng = np.random.default_rng(6)
+    iq = np.exp(1j * np.cumsum(rng.normal(0, 0.3, 2 * 4 * 50_000))) \
+        .astype(np.complex64)
+    raw = np.empty(2 * len(iq), dtype="<f4")
+    raw[0::2], raw[1::2] = iq.real, iq.imag
+    path = tmp_path / "x.iq"
+    raw.tofile(path)
+    a = IqStreamReader(path, channels=2, device=cuda).read_all()
+    b = IqStreamReader(path, channels=2, device="cpu").read_all()
+    d = a.astype(np.int32) - b.astype(np.int32)
+    assert a.shape == b.shape == (100_000,)
+    assert np.abs(d).max() <= 1 and np.count_nonzero(d) <= len(d) // 1000

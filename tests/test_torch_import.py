@@ -34,6 +34,12 @@ MODULES = [
     "gnuais_tpu_torch.runtime.streaming",
     "gnuais_tpu_torch.runtime.checkpoint",
     "gnuais_tpu_torch.runtime.supervisor",
+    "gnuais_tpu_torch.ops.discriminator",
+    "gnuais_tpu_torch.io.iq",
+    "gnuais_tpu_torch.parallel",
+    "gnuais_tpu_torch.parallel.mesh",
+    "gnuais_tpu_torch.parallel.sharded",
+    "gnuais_tpu_torch.parallel.timepar",
     # the port's own copies of the JAX package's host modules
     "gnuais_tpu_torch.constants",
     "gnuais_tpu_torch.config",
@@ -154,3 +160,23 @@ def test_kernel_build_flags_keep_rounding_exact():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert _build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
     assert "build/" in (REPO / ".gitignore").read_text().split()
+
+
+def test_throughput_entry_points_default_to_cuda(tmp_path):
+    """The lanes, the mesh session and the IQ readers want the card
+    unless the CPU is asked for; where there is none they raise."""
+    from gnuais_tpu_torch.io.iq import IqStreamReader
+    from gnuais_tpu_torch.parallel.mesh import make_grid_mesh
+    from gnuais_tpu_torch.parallel.timepar import time_parallel_decode
+    iq = tmp_path / "x.iq"
+    iq.write_bytes(bytes(8 * 64))
+    calls = [lambda: time_parallel_decode(np.zeros(5000, np.int16)),
+             lambda: make_grid_mesh(1, 1),
+             lambda: IqStreamReader(iq)]
+    if torch.cuda.is_available():
+        assert make_grid_mesh(1, 1).device.type == "cuda"
+        assert IqStreamReader(iq).device.type == "cuda"
+    else:
+        for call in calls:
+            with pytest.raises(RuntimeError, match="cuda"):
+                call()
