@@ -156,13 +156,37 @@ raises and exits non-zero:
    and times, a block's upload pageable and through pinned memory.  B2
    on the first 64 rows of block 1's window against its plain version
    in the CPU child.
+20. Grids: the visible cards, each repeated round-robin to fill a grid
+   of 4 shards (each grid's cards printed, torch's name and nvidia-smi's
+   name and power limit, and the cards' peer access).
+   dryrun_multichip(4) (the stream-sharded step, then the 2 x 2 step
+   with a frame across the first shard boundary); TimeParSession on a
+   2 x 2 grid, 4096 rows, super-blocks of 49,152 (t_loc 24,576, B2 at
+   T = 31,744 on each shard) over phase 4's three fleet blocks: stream
+   by stream phase 19's frames, equal counters; GroupedTimeParSession
+   on a 4 x 1 grid, 1024 channels each of 4 fleet rows of block 0 and
+   then of block 1 end to end (rolled as in phase 18; group 4,
+   super-blocks of 196,608 a channel): every channel's frames those of
+   its rows in phase 4 at their rows' positions; make_sharded_decode on
+   the 4 shards over block 0 four times, each bitwise one decode_block's
+   (the median of the last three timed); ms a push beside phase 19's.
+21. The command line on grids and the cluster, on phase 17's stereo IQ
+   capture: meshshape 2 2 and meshshape 4 1 (grouped, 2 row segments a
+   channel) through cli.main, stdout and counters those of phase 17's
+   meshshape 1 1 run (with fewer than 4 cards: each refused with rc 1);
+   then two spawned ranks, --cluster 127.0.0.1:<port> 2 <r> with
+   meshshape 2 1, each on its own card where there are two
+   (CUDA_VISIBLE_DEVICES), else both on card 0: rank 0's stdout that of
+   the meshshape 1 1 run, rank 1's empty, both ranks' counters equal;
+   each rank counts its own launches, which this process adds up.
 The plain versions of phase 3's lane and session shapes and of phases
-18 and 19 run after phase 19 (no timed phase shares the host with
+18 and 19 run after phase 21 (no timed phase shares the host with
 them), each in a spawned CPU process of its own, and are held against
 the kernels' outputs.
 Then one JSON line of the twelve kernel modes (launch counts from their
 own paths, each count set to 0 just before its path: B2 over phases
-4-5, 15, 16, 17 (sequential and mesh) and 19, B1 in phase 7's pretiled
+4-5, 15, 16, 17 (sequential and mesh), 19, 20 and 21 (the ranks' too),
+B1 in phase 7's pretiled
 call and phases 17 (lanes) and 18, B2 lobe and B1 lobe over
 phase 8, B1 mxu and B2 mxu over phases 7m and 8m, B3 over phase 9, B4
 over phases 12 and 15, the deframer on group codes over phase 9 and on
@@ -2371,7 +2395,7 @@ def phase_iq(tmp: Path, blocks, expected):
           f"IQ launches {launches}")
     return ({"B2": launches["sequential"][0] + launches["meshshape 1 1"][0],
              "B1": launches["streams 8"][1]},
-            dict(front_end_ms=ms))
+            dict(front_end_ms=ms, mesh=runs["meshshape 1 1"]))
 
 
 def phase_lanes(tmp: Path, blocks, expected, child: PlainChild):
@@ -2736,7 +2760,345 @@ def phase_session(tmp: Path, blocks, per_block, child: PlainChild):
           f"restored into a new session continues identically; B2 launches "
           f"{launches}", flush=True)
     return launches, dict(push_ms=push_ms, save_ms=ms_save, load_ms=ms_load,
-                          size=size, b2_ms=ms_b2, b2_bound_ms=b_ms, **up)
+                          size=size, b2_ms=ms_b2, b2_bound_ms=b_ms, frames=got,
+                          counters=(sess.received, sess.wrong_crc,
+                                    sess.wrong_size), **up)
+
+
+# ---------------------------------------------------------------------------
+# Phases 20-21: grids of several devices and the cluster
+# ---------------------------------------------------------------------------
+
+GRID_T_LOC = FLEET_BLOCK // 2   # phase 20's 2 x 2 session: two time shards
+GROUP_ROWS = 4                  # fleet rows a channel of the grouped session
+GROUP_CHANNELS = FLEET_STREAMS // GROUP_ROWS
+CLUSTER_TIMEOUT = 300           # seconds a spawned rank may take
+
+# one rank of phase 21's cluster: the port's CLI with its NMEA socket at
+# argv[1]; its kernel launches written as JSON to argv[2]
+RANK_MAIN = (
+    "import functools, json, sys\n"
+    "from gnuais_tpu_torch import cli\n"
+    "from gnuais_tpu_torch.io import sinks\n"
+    "from gnuais_tpu_torch.ops import fused\n"
+    "cli.NmeaSocketServer = functools.partial(sinks.NmeaSocketServer, "
+    "sys.argv[1])\n"
+    "try:\n"
+    "    rc = cli.main(sys.argv[3:])\n"
+    "finally:\n"
+    "    with open(sys.argv[2], 'w') as f:\n"
+    "        json.dump({'B2': fused.pipeline_fused.launches,\n"
+    "                   'B1': fused.pipeline_fused_compact.launches}, f)\n"
+    "sys.exit(rc)\n")
+
+
+def sync_all():
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def all_ms(fn):
+    """One call of fn on the host clock, every card synchronised before
+    and after, and its result."""
+    sync_all()
+    t0 = time.perf_counter()
+    res = fn()
+    sync_all()
+    return (time.perf_counter() - t0) * 1e3, res
+
+
+def smi_cards() -> list:
+    """nvidia-smi's "name, power limit" of each card, by index."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()
+
+
+def print_grid_cards(label: str, devices) -> None:
+    """The cards a grid ran on, each on a line of its own: torch's name,
+    and nvidia-smi's name and power limit."""
+    import torch
+    smi = smi_cards()
+    for i in sorted({torch.device(d).index for d in devices}):
+        n = sum(torch.device(d).index == i for d in devices)
+        print(f"[20 grids] {label}: cuda:{i} ({n} shard{'s' * (n > 1)}) "
+              f"{torch.cuda.get_device_name(i)}; nvidia-smi: "
+              f"{smi[i] if i < len(smi) else 'not listed'}", flush=True)
+
+
+def grouped_channels(blocks):
+    """Phase 20's grouped input: channel c is fleet rows 4c..4c+3 of block
+    0 and then of block 1 laid end to end, each rolled onto the free-
+    running DPLL's grid at its position (``grid_offset``, as phase 18
+    does): [1024, 8 x 49,152] int16, two grouped super-blocks a
+    channel."""
+    n = 2 * GROUP_ROWS
+    x = np.empty((len(blocks[0]) // GROUP_ROWS, n * FLEET_BLOCK), np.int16)
+    for j in range(n):
+        rows = blocks[j // GROUP_ROWS][j % GROUP_ROWS::GROUP_ROWS]
+        x[:, j * FLEET_BLOCK:(j + 1) * FLEET_BLOCK] = np.roll(
+            rows, grid_offset(j * FLEET_BLOCK, DECODER_DELAY), axis=1)
+    return x
+
+
+def phase_grids(blocks, per_block, session):
+    """Phase 20: the grids on the visible cards, each repeated round-robin
+    to fill a grid.  ``dryrun_multichip(4)``; TimeParSession on a 2 x 2
+    grid (4096 rows, super-blocks of 49,152, t_loc 24,576: kernel B2 at
+    T = 31,744 on each shard) over the three fleet blocks, its frames and
+    counters equal to phase 19's 1 x 1 session (``session``) stream by
+    stream; GroupedTimeParSession on a 4 x 1 grid, 1024 channels of 4
+    fleet rows end to end (``grouped_channels``; group 4, super-blocks of
+    196,608 a channel), two pushes (the grouped step, then the row-padded
+    flush), every channel's frames those of its rows in phase 4 at their
+    rows' positions; make_sharded_decode on 4 shards over block 0, four
+    calls, each against one decode_block, every leaf bitwise.  Returns
+    (B2's launches, the times)."""
+    import torch
+    from gnuais_tpu_torch.dryrun import dryrun_multichip, round_robin
+    from gnuais_tpu_torch.ops import fused
+    from gnuais_tpu_torch.parallel import mesh as M
+    from gnuais_tpu_torch.parallel.sharded import make_sharded_decode
+    from gnuais_tpu_torch.parallel.timepar import (GroupedTimeParSession,
+                                                   TimeParSession)
+    from gnuais_tpu_torch.runtime.pipeline import (decode_block, init_carry,
+                                                   extract_frames)
+    n_cards = torch.cuda.device_count()
+    devs = round_robin(4, "cuda")
+    peers = {(i, j): torch.cuda.can_device_access_peer(i, j)
+             for i in range(n_cards) for j in range(n_cards) if i != j}
+    print(f"[20 grids] {n_cards} visible card(s); the grids' 4 shards on "
+          f"{', '.join(map(str, devs))}; peer access "
+          + (", ".join(f"{i}->{j} {'yes' if v else 'no'}"
+                       for (i, j), v in peers.items()) or "n/a (one card)"),
+          flush=True)
+    print_grid_cards("every grid", devs)
+    fused.pipeline_fused.launches = 0
+
+    ms_dry, _ = all_ms(lambda: dryrun_multichip(4, "cuda", devices=devs))
+    check(fused.pipeline_fused.launches == 8,
+          f"the dry run launched B2 {fused.pipeline_fused.launches} times")
+    print(f"[20 grids] dryrun_multichip(4): the 1-D step on 4 shards and "
+          f"the 2 x 2 step with the frame across the first shard boundary, "
+          f"payload bits byte-equal; {ms_dry:.0f} ms", flush=True)
+
+    # TimeParSession on a 2 x 2 grid against phase 19's 1 x 1 session
+    launches = fused.pipeline_fused.launches
+    fused.pipeline_fused.launches = 0
+    sess = TimeParSession(M.make_grid_mesh(2, 2, devices=devs),
+                          FLEET_STREAMS, FLEET_BLOCK)
+    got = [[] for _ in range(FLEET_STREAMS)]
+    push_ms = []
+    for x in list(blocks) + [None]:
+        ms, out = all_ms(lambda: sess.push(x) if x is not None
+                         else sess.flush())
+        push_ms.append(ms)
+        for i, lst in enumerate(out or []):
+            got[i] += [f.payload_bits[:f.bufferlen].tobytes()
+                       for _s, _e, f in lst]
+    n_sess = fused.pipeline_fused.launches
+    check(n_sess == 4 * len(blocks),
+          f"the 2 x 2 session launched B2 {n_sess} times")
+    check(got == session["frames"],
+          "the 2 x 2 session's frames differ from phase 19's 1 x 1 session")
+    check((sess.received, sess.wrong_crc, sess.wrong_size)
+          == session["counters"], "the 2 x 2 session's counters differ")
+    total = sum(map(len, got))
+    print(f"[20 grids] TimeParSession(2 x 2, {FLEET_STREAMS} rows, "
+          f"super-block {FLEET_BLOCK}, t_loc {GRID_T_LOC}: B2 at T = "
+          f"{4096 + GRID_T_LOC + 3072}) over the {len(blocks)} fleet blocks: "
+          f"{total} frames, stream by stream those of phase 19's 1 x 1 "
+          f"session, counters equal; B2 launches {n_sess}; push "
+          + ", ".join(f"{m:.1f}" for m in push_ms[:-1])
+          + f" ms, flush {push_ms[-1]:.1f} ms (host clock, every card "
+          f"synchronised; the first push holds its block); phase 19's "
+          f"1 x 1 push " + ", ".join(f"{m:.1f}" for m in session["push_ms"][:-1])
+          + " ms", flush=True)
+    launches += n_sess
+
+    # GroupedTimeParSession on a 4 x 1 grid: 1024 channels of 4 rows
+    x = grouped_channels(blocks)
+    sb = GROUP_ROWS * FLEET_BLOCK
+    fused.pipeline_fused.launches = 0
+    gs = GroupedTimeParSession(M.make_grid_mesh(4, 1, devices=devs),
+                               GROUP_CHANNELS, GROUP_ROWS, FLEET_BLOCK)
+    got_g = [[] for _ in range(GROUP_CHANNELS)]
+    grouped_ms = []
+    for k in range(x.shape[1] // sb):
+        ms, out = all_ms(lambda: gs.push(x[:, k * sb:(k + 1) * sb]))
+        grouped_ms.append(ms)
+        for c, lst in enumerate(out or []):
+            got_g[c] += lst
+    ms, out = all_ms(gs.flush)
+    grouped_ms.append(ms)
+    for c, lst in enumerate(out):
+        got_g[c] += lst
+    n_grouped = fused.pipeline_fused.launches
+    check(n_grouped == 4 + 4 * GROUP_ROWS,
+          f"the grouped session launched B2 {n_grouped} times")
+    del x
+    frames_g = 0
+    for c in range(GROUP_CHANNELS):
+        want = [(j, p) for j in range(2 * GROUP_ROWS)
+                for p in per_block[j // GROUP_ROWS][GROUP_ROWS * c
+                                                    + j % GROUP_ROWS]]
+        mine = [(st // FLEET_BLOCK, f.payload_bits[:f.bufferlen].tobytes())
+                for st, _en, f in got_g[c]]
+        check(mine == want, f"grouped channel {c}: {len(mine)} frames, "
+              f"{len(want)} in its rows (phase 4), or at other rows")
+        frames_g += len(mine)
+    check((sum(gs.received), sum(gs.wrong_crc), sum(gs.wrong_size))
+          == (frames_g, 0, 0), "the grouped session's counters")
+    print(f"[20 grids] GroupedTimeParSession(4 x 1, {GROUP_CHANNELS} "
+          f"channels x {GROUP_ROWS} row segments, super-block {sb} a "
+          f"channel): 2 pushes of fleet rows end to end (rolled onto the "
+          f"DPLL grid), {frames_g} frames, every channel's those of its "
+          f"rows in phase 4 at their rows' positions; counters ({frames_g}, "
+          f"0, 0); B2 launches {n_grouped}; grouped push "
+          f"{grouped_ms[1]:.1f} ms, row-padded flush {grouped_ms[-1]:.1f} "
+          f"ms ({GROUP_ROWS} steps)", flush=True)
+    launches += n_grouped
+
+    # make_sharded_decode on 4 shards against one decode_block
+    flags = dict(frame_slots=FLEET_SLOTS, fused_pipeline=True,
+                 device_crc=True)
+    x0 = torch.from_numpy(blocks[0]).cuda()
+    ref = decode_block(x0, FLEET_BLOCK, init_carry(FLEET_STREAMS, "cuda"),
+                       **flags)
+    fused.pipeline_fused.launches = 0
+    step = make_sharded_decode(M.make_stream_mesh(4, devices=devs), **flags)
+    # the first call pays each card's first use of the CRC filter's
+    # product; the median of the next three is the step's time
+    sd_ms = []
+    for _ in range(4):
+        ms, out = all_ms(lambda: step(x0, FLEET_BLOCK,
+                                      init_carry(FLEET_STREAMS, "cuda")))
+        sd_ms.append(ms)
+        compare(out, ref, "make_sharded_decode on 4 shards vs decode_block")
+    ms_sd = statistics.median(sd_ms[1:])
+    n_sd = fused.pipeline_fused.launches
+    check(n_sd == 4 * 4, f"the stream-sharded step launched B2 {n_sd} times")
+    n_frames = sum(map(len, extract_frames(out[1])))
+    print(f"[20 grids] make_sharded_decode(4 shards, {FLEET_STREAMS} "
+          f"streams) over block 0, 4 calls: every carry and frame leaf "
+          f"bitwise that of one decode_block ({n_frames} frames); "
+          f"{ms_sd:.1f} ms (median of the last 3; the first "
+          f"{sd_ms[0]:.1f} ms; host clock, every card synchronised); B2 "
+          f"launches {n_sd}", flush=True)
+    launches += n_sd
+    return launches, dict(push_ms=push_ms, grouped_ms=grouped_ms,
+                          sharded_ms=ms_sd, cards=n_cards,
+                          peers=any(peers.values()))
+
+
+def phase_cluster(tmp: Path, iq_mesh):
+    """Phase 21: the command line on grids and across processes, on phase
+    17's stereo IQ capture (``tmp/fleet.iq``).  ``meshshape 2 2`` and
+    ``meshshape 4 1`` (the grouped session, 2 row segments a channel)
+    through ``cli.main``: stdout and counters equal phase 17's
+    ``meshshape 1 1`` run (``iq_mesh``: its stdout and counters); with
+    fewer than 4 cards the CLI must refuse each with rc 1.  Then two
+    spawned ranks, ``--cluster 127.0.0.1:<port> 2 <r>`` with ``meshshape
+    2 1``, each on its own card where there are two (CUDA_VISIBLE_DEVICES)
+    or both on card 0: rank 0's stdout equal to the 1 x 1 run's, rank 1's
+    empty, both ranks' counters equal.  Returns (B2's launches, in this
+    process and in the ranks, the times)."""
+    import socket
+    import torch
+    from gnuais_tpu_torch.ops import fused
+    n_cards = torch.cuda.device_count()
+    path = tmp / "fleet.iq"
+    check(path.exists(), "phase 17's IQ capture is gone")
+    want_out, want_counters = iq_mesh
+    launches, times = 0, {}
+    for shape in ("2 2", "4 1"):
+        conf = tmp / "grid.conf"
+        conf.write_text(f"soundchannels both\ninputformat iq\n"
+                        f"iqdecim {IQ_DECIM}\nmeshshape {shape}\n")
+        fused.pipeline_fused.launches = 0
+        rc, out, text, secs = cli_run(["-c", str(conf), "-l", str(path)],
+                                      short_path(tmp / "grid.sock"))
+        n = fused.pipeline_fused.launches
+        if n_cards < 4:
+            check(rc == 1 and out == "" and "needs 4 devices" in text,
+                  f"meshshape {shape} on {n_cards} card(s): rc {rc}, "
+                  f"{text[-300:]}")
+            print(f"[21 cluster] cli meshshape {shape}: refused with rc 1 on "
+                  f"{n_cards} card(s), as it must be: the run needs 4 cards "
+                  f"({[l for l in text.splitlines() if 'needs' in l][0]})",
+                  flush=True)
+            continue
+        check(rc == 0, f"meshshape {shape}: rc {rc}: {text[-500:]}")
+        check(out == want_out, f"meshshape {shape}: stdout differs from "
+              "phase 17's meshshape 1 1")
+        check(cli_counters(text) == want_counters,
+              f"meshshape {shape} counters {cli_counters(text)}")
+        check(n > 0, f"meshshape {shape} launched no B2")
+        launches += n
+        times[shape] = secs
+        print(f"[21 cluster] cli inputformat iq, meshshape {shape} on 4 "
+              f"cards: stdout ({len(out.splitlines())} lines) and counters "
+              f"{cli_counters(text)} those of phase 17's meshshape 1 1; B2 "
+              f"launches {n}; {secs:.1f} s", flush=True)
+
+    conf = tmp / "cluster.conf"
+    conf.write_text(f"soundchannels both\ninputformat iq\n"
+                    f"iqdecim {IQ_DECIM}\nmeshshape 2 1\n")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + ([os.environ["PYTHONPATH"]]
+                       if os.environ.get("PYTHONPATH") else [])))
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(2):
+        card = r if n_cards >= 2 else 0
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_MAIN, short_path(tmp / f"r{r}.sock"),
+             str(tmp / f"rank{r}.json"), "-c", str(conf), "-l", str(path),
+             "--cluster", f"127.0.0.1:{port}", "2", str(r)],
+            env=dict(env, CUDA_VISIBLE_DEVICES=str(card)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=str(REPO)))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=CLUSTER_TIMEOUT)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    secs = time.perf_counter() - t0
+    for r, (rc, _out, err) in enumerate(outs):
+        check(rc == 0, f"cluster rank {r}: rc {rc}: {err[-1500:]}")
+        check(f"Cluster: process {r}/2" in err, f"rank {r} joined no cluster")
+    check(outs[0][1] == want_out,
+          "cluster rank 0's stdout differs from phase 17's meshshape 1 1")
+    check(outs[1][1] == "", "cluster rank 1 wrote to stdout")
+    c0, c1 = (cli_counters(o[2]) for o in outs)
+    check(c0 == c1 == want_counters, f"cluster counters {c0}, {c1}")
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(2)]
+    check(all(k["B2"] > 0 for k in ranks), f"rank launches {ranks}")
+    launches += sum(k["B2"] for k in ranks)
+    times["cluster_s"] = secs
+    print(f"[21 cluster] two ranks, --cluster 127.0.0.1:{port} 2 <r>, "
+          f"meshshape 2 1, "
+          + ("each on its own card (CUDA_VISIBLE_DEVICES 0 and 1)"
+             if n_cards >= 2 else "both on card 0")
+          + f": rank 0's stdout ({len(outs[0][1].splitlines())} lines) that "
+          f"of phase 17's meshshape 1 1, rank 1's empty, counters {c0} on "
+          f"both; B2 launches rank 0 {ranks[0]['B2']}, rank 1 "
+          f"{ranks[1]['B2']}; {secs:.1f} s for the pair (start-up "
+          f"included)", flush=True)
+    return launches, times
 
 
 def timed(label: str, fn, *args):
@@ -2854,6 +3216,12 @@ def main() -> int:
             "18 lanes", phase_lanes, Path(tmp), blocks, expected, child)
         ses_launches, ses_times = timed("19 session", phase_session,
                                         Path(tmp), blocks, per_block, child)
+        # grids of several devices and the cluster, each count set to 0
+        # just before its path and read after it
+        grid_launches, grid_times = timed("20 grids", phase_grids, blocks,
+                                          per_block, ses_times)
+        cl_launches, cl_times = timed("21 cluster", phase_cluster,
+                                      Path(tmp), iq_times["mesh"])
     launches2 += station["B2"] + sup_launches
     launches4 += station["B4"]
     launches_hs += station["deframer"]
@@ -2883,6 +3251,15 @@ def main() -> int:
           f"{statistics.median(ses_times['push_ms'][1:-1]):.1f} ms a push; "
           f"launches with phases 17-19: B2 {launches2}, B1 {launches1}",
           flush=True)
+    launches2 += grid_launches + cl_launches
+    print(f"[21 cluster] on {card} ({grid_times['cards']} visible): the 2 x "
+          f"2 session {statistics.median(grid_times['push_ms'][1:-1]):.1f} "
+          f"ms a push beside the 1 x 1 session's "
+          f"{statistics.median(ses_times['push_ms'][1:-1]):.1f}; the grouped "
+          f"4 x 1 push {grid_times['grouped_ms'][1]:.1f} ms; the stream-"
+          f"sharded step {grid_times['sharded_ms']:.1f} ms; the cluster pair "
+          f"{cl_times['cluster_s']:.1f} s; B2 launches with phases 20-21 "
+          f"{launches2}", flush=True)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "gnuais_tpu")

@@ -14,10 +14,13 @@ package's only in their import lines.
 Entry points: ``runtime.pipeline.BatchPipeline`` and ``TorchReceiver``
 (the decode step with a carried state), ``runtime.batch.BatchSession``
 (the fleet decode), the throughput modes ``parallel.timepar.
-time_parallel_decode`` (lanes) and ``TimeParSession`` (a 1 x 1 grid),
-the IQ readers of ``io.iq``, and the ``gnuais-tpu-torch`` command
-(``gnuais_tpu_torch.cli``).  Every constructor takes an explicit
-``device``; nothing picks one silently.
+time_parallel_decode`` (lanes), ``TimeParSession`` and
+``GroupedTimeParSession`` (on a grid of cards, ``parallel.mesh``), the
+stream-sharded step ``parallel.sharded.make_sharded_decode``, the
+cluster of ``parallel.cluster``, the IQ readers of ``io.iq``, and the
+``gnuais-tpu-torch`` command (``gnuais_tpu_torch.cli``).  Every
+constructor takes an explicit ``device`` or grid; nothing picks one
+silently.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,7 @@
                      [-r logdir] [-f] [--pidfile PATH] [--streams N]
                      [--backend exact|fast|fused|golden] [--device cuda|cpu]
                      [--profile DIR] [--checkpoint PATH] [--checkpoint-every N]
-                     [--low-latency]
+                     [--low-latency] [--cluster COORDINATOR NPROCS PROCID]
     gnuais-tpu-torch --monitor [--map [--port N] [--tile-dir DIR] [--tile-fetch]]
     gnuais-tpu-torch --batch FILE... [--replicate N]
                      [--backend exact|fast|fused]
@@ -34,20 +34,26 @@ The throughput modes: ``streams N`` (``--streams``) decodes a whole
 capture as overlapped chunk lanes through kernel B1
 (``parallel.timepar.time_parallel_decode``), falling back to the exact
 streaming session when a constant-level gap outruns the lanes' resync
-overlap (``lanesguard``); ``meshshape 1 1`` streams super-blocks through
-``parallel.timepar.TimeParSession`` (kernel B2, the exact carry
-hand-off at the seams), with its ``<checkpoint>.mesh.npz`` snapshot and
-``--low-latency`` (4096-sample shards).  The device defaults to
-``cuda``; ``cpu`` must be asked for.  A config that sets a directive of
-a path not ported yet (``UNHONOURED``: a mesh of more than one device,
-the cluster settings) is refused with rc 1.
+overlap (``lanesguard``); ``meshshape s t`` streams super-blocks through
+``parallel.timepar.TimeParSession`` on a grid of s x t devices (kernel
+B2 on every shard, the halos between time shards, the exact carry
+hand-off at the seams), or ``GroupedTimeParSession`` when the channels
+are fewer than the streams axis (each channel's super-block split into
+row segments), with its ``<checkpoint>.mesh.npz`` snapshot and
+``--low-latency`` (4096-sample shards).  On ``cuda`` a grid takes
+distinct cards and a grid larger than the visible cards is refused (rc
+1); on ``cpu`` its shards are logical shards of the CPU.  ``--cluster
+COORDINATOR NPROCS PROCID`` runs one decode across processes (the same
+command with each rank; ``parallel.cluster``): the grid spans every
+process's devices, each process decodes its own shards, and rank 0
+alone writes the output.  The device defaults to ``cuda``; ``cpu`` must
+be asked for.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import copy
 import logging
 import os
 import stat as stat_mod
@@ -76,24 +82,6 @@ LOG_LEVELS = {"emerg": logging.CRITICAL, "alert": logging.CRITICAL,
               "info": logging.INFO, "debug": logging.DEBUG}
 
 BACKENDS = ("exact", "fast", "fused", "golden")
-
-
-def _grid_devices(c: Config) -> int:
-    """The devices a config's ``meshshape`` asks for (0 without one)."""
-    if not c.meshshape:
-        return 0
-    s_ax, t_ax = (tuple(c.meshshape) + (1, 1))[:2]
-    return s_ax * t_ax
-
-
-# Directives whose paths the port does not have yet, each with a test of
-# whether a config sets it: run_decode refuses such a config (log and
-# rc 1) rather than decode without the directive.
-UNHONOURED = (
-    ("meshshape", lambda c: _grid_devices(c) > 1),
-    ("cluster", lambda c: (c.cluster_coordinator is not None
-                           or c.cluster_nprocs > 0 or c.cluster_procid >= 0)),
-)
 
 
 def make_receiver_factory(cfg: Config, device: str):
@@ -284,32 +272,70 @@ class _TimeParDispatcher:
         self.emitted_lines = int(st["emitted_lines"])
 
 
+def _grid_mesh(meshshape, device: str):
+    """The grid ``meshshape s t`` asks for: s x t distinct cards on
+    ``cuda``, logical shards on ``cpu``; under ``--cluster`` the grid over
+    every process's devices (its visible cards, or its share of the
+    logical shards).  Raises ValueError when the devices are too few."""
+    from .parallel import cluster
+    from .parallel import mesh as M
+    s_ax, t_ax = (tuple(meshshape) + (1, 1))[:2]
+    world = cluster.process_count()
+    if world == 1:
+        return M.make_grid_mesh(s_ax, t_ax, device=device)
+    return cluster.make_cluster_mesh(
+        t_ax, streams=s_ax, devices=cluster.local_devices(
+            device, -(-(s_ax * t_ax) // world)))
+
+
 def _mesh_decode(cfg: Config, chans, nch: int, block_iter, dispatcher,
-                 tee, device: str, level_mons=None, stats_tick=None) -> tuple:
-    """Streaming mesh decode: ``meshshape 1 1`` runs every channel row
-    through ``TimeParSession`` on one device (kernel B2 on the card):
-    O(super_block) host memory, the exact carry hand-off between
-    super-blocks, files and live inputs alike.  Returns (per-channel
-    counters, samples per channel).
+                 tee, mesh, level_mons=None, stats_tick=None) -> tuple:
+    """Streaming mesh decode: ``meshshape s t`` runs every channel row
+    across the streams x time grid ``mesh`` through ``TimeParSession``
+    (kernel B2 on every shard on the card): O(super_block) host memory,
+    the exact carry hand-off between super-blocks, files and live inputs
+    alike.  Returns (per-channel counters, samples per channel).
 
     level_mons: per-channel LevelMonitor list fed with the step's input
     peak (receiver.c:137-147).  stats_tick: called once per input block
     for StatsInterval range logging (ais.c:250-262)."""
-    from .parallel import mesh as M
-    from .parallel.timepar import TimeParSession
+    from .parallel.timepar import GroupedTimeParSession, TimeParSession
 
-    s_ax, t_ax = (tuple(cfg.meshshape) + (1, 1))[:2]
+    s_ax, t_ax = mesh.streams, mesh.time
     n_rows = len(chans)
     t_loc = max(4096, -(-cfg.timepar_block // 512) * 512)
-    sb = t_ax * t_loc
-    s_rows = -(-n_rows // s_ax) * s_ax   # zero-pad to shardable S
-    sess = TimeParSession(M.make_grid_mesh(s_ax, t_ax, device=device),
-                          s_rows, sb, frame_slots=max(cfg.frameslots, 32))
-    log.info("Mesh decode: %dx%d devices, %d-sample shards, "
-             "%d-sample super-blocks, %d channel row(s)",
-             s_ax, t_ax, t_loc, sb, n_rows)
+    sb_row = t_ax * t_loc
+    if s_ax > n_rows and s_ax % n_rows == 0:
+        # fewer channel rows than the streams axis: split each channel's
+        # super-block into `group` consecutive row segments (overlap-
+        # resync sequence parallelism along the streams axis), so that
+        # every row of the grid decodes real data — a mono capture on
+        # meshshape 4 2 keeps 8 shards busy
+        group = s_ax // n_rows
+        sb = group * sb_row
+        sess = GroupedTimeParSession(mesh, n_rows, group, sb_row,
+                                     frame_slots=max(cfg.frameslots, 32))
+        buf_rows = n_rows
+        log.info("Mesh decode: %dx%d devices, %d-sample shards, "
+                 "%d channel row(s) x %d row segments "
+                 "(%d-sample super-blocks)",
+                 s_ax, t_ax, t_loc, n_rows, group, sb)
+    else:
+        s_rows = -(-n_rows // s_ax) * s_ax   # zero-pad to shardable S
+        if s_rows > n_rows:
+            log.warning(
+                "meshshape streams axis (%d) does not divide into the "
+                "%d channel row(s): %d mesh rows idle",
+                s_ax, n_rows, s_rows - n_rows)
+        sb = sb_row
+        sess = TimeParSession(mesh, s_rows, sb,
+                              frame_slots=max(cfg.frameslots, 32))
+        buf_rows = s_rows
+        log.info("Mesh decode: %dx%d devices, %d-sample shards, "
+                 "%d-sample super-blocks, %d channel row(s)",
+                 s_ax, t_ax, t_loc, sb, n_rows)
 
-    buf = np.zeros((s_rows, sb), np.int16)
+    buf = np.zeros((buf_rows, sb), np.int16)
     state = {"fill": 0, "pushed": 0, "samples": 0, "skip": 0}
 
     # checkpoint/resume (SURVEY section 5): the session's cross-push
@@ -322,7 +348,7 @@ def _mesh_decode(cfg: Config, chans, nch: int, block_iter, dispatcher,
     # push consumes a whole super-block: pushes at the same cadence
     ckpt_every = max(1, ((cfg.checkpoint_every or 1)
                          * audio_io.reference_block_frames()) // sb)
-    layout = [s_ax, t_ax, sb, s_rows, nch]
+    layout = [s_ax, t_ax, sb, buf_rows, nch]
     if ckpt and os.path.exists(ckpt):
         try:
             data = np.load(ckpt, allow_pickle=True)
@@ -472,12 +498,12 @@ def _lanes_decode(cfg: Config, chans, nch: int, interleaved: np.ndarray,
     return counters, n
 
 
-def _timepar_decode(cfg: Config, device: str, live, iq_reader, interleaved,
-                    nch: int, on_message, ranges, tee) -> tuple:
-    """The throughput modes (``streams N``, ``meshshape 1 1``): both map
-    channels A/B onto stream rows and replay the reference's emission
-    order through the recorded stop positions.  Returns (per-channel
-    counters, samples per channel)."""
+def _timepar_decode(cfg: Config, device: str, mesh, live, iq_reader,
+                    interleaved, nch: int, on_message, ranges, tee) -> tuple:
+    """The throughput modes (``streams N``, ``meshshape s t`` on the grid
+    ``mesh``): both map channels A/B onto stream rows and replay the
+    reference's emission order through the recorded stop positions.
+    Returns (per-channel counters, samples per channel)."""
     chans = _active_channels(cfg.sound_channels)
     disp = _TimeParDispatcher(chans, cfg.skip_type, on_message)
     # the step's input peak feeds per-channel level monitors;
@@ -498,7 +524,7 @@ def _timepar_decode(cfg: Config, device: str, live, iq_reader, interleaved,
         block_iter = (live.blocks() if live is not None
                       else iq_reader.blocks() if iq_reader is not None
                       else audio_io.iter_blocks(interleaved, nch, 1 << 16))
-        return _mesh_decode(cfg, chans, nch, block_iter, disp, tee, device,
+        return _mesh_decode(cfg, chans, nch, block_iter, disp, tee, mesh,
                             level_mons=level_mons, stats_tick=stats_tick)
     if iq_reader is not None:
         # whole-capture lane decode: only the demodulated audio is held
@@ -518,28 +544,29 @@ def _timepar_decode(cfg: Config, device: str, live, iq_reader, interleaved,
             "exact parity past such gaps — falling back to the exact "
             "streaming session (disable with `lanesguard off`)",
             gap, DEFAULT_OVERLAP)
-        cfg_fb = copy.copy(cfg)
-        cfg_fb.meshshape = (1, 1)
-        return _mesh_decode(cfg_fb, chans, nch,
+        from .parallel.mesh import make_grid_mesh
+        return _mesh_decode(cfg, chans, nch,
                             audio_io.iter_blocks(interleaved, nch, 1 << 16),
-                            disp, tee, device, level_mons=level_mons,
-                            stats_tick=stats_tick)
+                            disp, tee, make_grid_mesh(1, 1, device=device),
+                            level_mons=level_mons, stats_tick=stats_tick)
     return _lanes_decode(cfg, chans, nch, interleaved, disp, tee, device,
                          level_mons=level_mons)
 
 
 def run_decode(cfg: Config, device: str, out_stream=None) -> int:
-    for directive, is_set in UNHONOURED:
-        if is_set(cfg):
-            extra = (f" over {_grid_devices(cfg)} devices (a mesh of one "
-                     "device, meshshape 1 1, is)"
-                     if directive == "meshshape" else "")
-            log.critical("The %s directive is not supported by this port "
-                         "yet%s.", directive, extra)
-            return 1
     if not cfg.sound_in_file and not cfg.sound_device:
         log.critical("Neither sound device or sound file configured.")
         return 1
+    mesh = None
+    if cfg.meshshape:
+        # the grid first: a grid of more cards than there are is refused
+        # before anything is opened
+        try:
+            mesh = _grid_mesh(cfg.meshshape, device)
+        except ValueError as e:
+            log.critical("Cannot decode meshshape %s on %s: %s",
+                         " ".join(map(str, cfg.meshshape)), device, e)
+            return 1
 
     nch_cfg = 1 if cfg.sound_channels == C.SOUND_CHANNELS_MONO else 2
     live = None
@@ -588,15 +615,24 @@ def run_decode(cfg: Config, device: str, out_stream=None) -> int:
                      cfg.sound_device, e)
         return 1
 
+    # a cluster's ranks all drain the identical global frame stream
+    # (``parallel.sharded``), so the ranks above 0 run the dispatcher for
+    # exact counters but open no sink: one process emits, and the
+    # cluster's output is byte for byte a single process's
+    quiet_rank = cfg.cluster_nprocs > 1 and cfg.cluster_procid > 0
+    if quiet_rank:
+        out_stream = open(os.devnull, "w")
     stdout_sink = StdoutSink(out_stream)
     socket_srv: Optional[NmeaSocketServer] = None
-    try:
-        socket_srv = NmeaSocketServer()
-    except OSError as e:
-        log.error("Could not open Unix Domain Socket: %s", e)
-    serial_sink = SerialSink(cfg.serial_port) if cfg.serial_port else None
-    db = _open_db(cfg)
-    cache = VesselCache() if cfg.uplinks else None
+    if not quiet_rank:
+        try:
+            socket_srv = NmeaSocketServer()
+        except OSError as e:
+            log.error("Could not open Unix Domain Socket: %s", e)
+    serial_sink = (SerialSink(cfg.serial_port)
+                   if cfg.serial_port and not quiet_rank else None)
+    db = None if quiet_rank else _open_db(cfg)
+    cache = VesselCache() if cfg.uplinks and not quiet_rank else None
     exporter = None
     if cache:
         exporter = JsonExporter(cache, [u.url for u in cfg.uplinks],
@@ -646,8 +682,8 @@ def run_decode(cfg: Config, device: str, out_stream=None) -> int:
             t0 = time_mod.time()
             if want_timepar:
                 timepar_counters, n_samples = _timepar_decode(
-                    cfg, device, live, iq_reader, interleaved, nch_cfg,
-                    on_message, ranges, tee)
+                    cfg, device, mesh, live, iq_reader, interleaved,
+                    nch_cfg, on_message, ranges, tee)
             else:
                 n_samples, sess = _sequential_decode(
                     cfg, device, live, iq_reader, interleaved, on_message,
@@ -672,6 +708,8 @@ def run_decode(cfg: Config, device: str, out_stream=None) -> int:
             serial_sink.close()
         if db:
             db.close()
+        if quiet_rank:
+            out_stream.close()
     if cfg.profile_dir:
         log.info("Profiler trace written to %s", cfg.profile_dir)
 
@@ -830,6 +868,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "samples, the resync overlap's floor); one "
                         "super-block is held for the exact seam "
                         "hand-off; costs throughput")
+    p.add_argument("--cluster", nargs=3,
+                   metavar=("COORDINATOR", "NPROCS", "PROCID"),
+                   help="one decode across processes: run the same "
+                        "command in every process with its rank (e.g. "
+                        "--cluster head:9999 2 0); meshshape spans every "
+                        "process's devices (its visible cards), each "
+                        "process decodes its own shards, the frame "
+                        "outputs go to every process and rank 0 emits")
     p.add_argument("--batch", nargs="+", metavar="CAPTURE",
                    help="batch-decode N independent capture files")
     p.add_argument("--replicate", type=int, default=1,
@@ -876,6 +922,25 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg.streams = args.streams
     if args.backend:
         cfg.backend = args.backend
+    if args.cluster:
+        cfg.cluster_coordinator = args.cluster[0]
+        cfg.cluster_nprocs = int(args.cluster[1])
+        cfg.cluster_procid = int(args.cluster[2])
+    if cfg.cluster_nprocs > 1:
+        # shield the machine-readable AIS stdout from native-library
+        # chatter: gloo writes connection banners to fd 1 from C++.  The
+        # decode writes to a private dup of the real stdout, and fd 1
+        # points at stderr, so no foreign write can interleave with the
+        # output (the reference's stdout carries only decoded text,
+        # ais.c:934/984; consumers parse it line by line)
+        real_out = os.dup(1)
+        os.dup2(2, 1)
+        sys.stdout = os.fdopen(real_out, "w", buffering=1)
+        from .parallel.cluster import ClusterConfig, initialize
+        initialize(ClusterConfig(cfg.cluster_coordinator,
+                                 cfg.cluster_nprocs, cfg.cluster_procid))
+        log.info("Cluster: process %d/%d via %s", cfg.cluster_procid,
+                 cfg.cluster_nprocs, cfg.cluster_coordinator)
     if args.profile:
         cfg.profile_dir = args.profile
     if args.checkpoint:
@@ -887,7 +952,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         # DEFAULT_OVERLAP): smaller shards would shrink the lead overlap
         # below the DPLL relock + max frame margin
         cfg.timepar_block = 4096
-    return run_decode(cfg, args.device)
+    try:
+        return run_decode(cfg, args.device)
+    finally:
+        from .parallel.cluster import shutdown
+        shutdown()
 
 
 if __name__ == "__main__":

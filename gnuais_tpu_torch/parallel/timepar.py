@@ -18,8 +18,11 @@ appear.  That turns time into a parallel axis:
 ``time_parallel_decode`` runs the chunks as the batch lanes of one
 ``decode_block`` call: kernel B1 (``kernel_compact``) on the card, its
 plain version on the CPU.  ``TimeParSession`` streams super-blocks
-through the step of ``sharded`` (kernel B2) with the exact hand-off of
-the edges between them.
+through the streams x time step of ``sharded`` (kernel B2 on every
+shard of the grid) with the exact hand-off of the edges between them;
+``GroupedTimeParSession`` does the same for fewer channels than the
+grid's streams axis, each channel's super-block split into row
+segments.
 
 Operating envelope: resync needs transitions.  With a noise floor the
 DPLL locks within any lead overlap and the lanes give the sequential
@@ -357,5 +360,192 @@ class TimeParSession:
         out = self._run(self._held, self._held_base,
                         np.zeros((self.n_streams, self.extension),
                                  np.int16), end)
+        self._held = None
+        return out
+
+
+class GroupedTimeParSession:
+    """The grid's session for channel counts below the ``streams`` axis:
+    no idle rows.
+
+    Each channel's super-block is split into ``group`` consecutive row
+    segments mapped onto that many rows of the grid (overlap-resync
+    sequence parallelism along the streams axis, composed with the
+    step's time shards), where ``TimeParSession`` would decode rows of
+    zeros.  The step is unchanged: a row segment's lead overlap and tail
+    extension are the per-row ``prev_tail``/``next_head`` the step
+    takes, and within one push they come from the neighbouring row's
+    samples on the host.  Only the last row of a channel needs the
+    successor super-block's head: the one super-block of latency that
+    ``TimeParSession`` pays too.
+
+    Positions: the step runs in local row coordinates (global_base 0:
+    every row has the same window geometry, so ownership and the lost2
+    gate stay exact) with each row's DPLL grid phase offset by its
+    absolute segment base (``row_phase``); the host drain offsets each
+    row's frames by that base and merges the rows of a channel, deduping
+    the seams' duplicates by proximity as at time-shard seams
+    (``sharded.dedup_by_start``, chained across pushes).
+
+    The final held block (real data may end mid-row, which one scalar
+    valid_end cannot say per row) is decoded in ``group`` sequential
+    row-padded steps of one row segment a channel with the exact
+    absolute valid_end, so the counters match the sequential chain.
+    ``snapshot``/``restore`` keep the JAX class's keys as numpy arrays
+    and Python values, so a snapshot crosses packages."""
+
+    def __init__(self, mesh, n_channels: int, group: int, sb_row: int,
+                 frame_slots: int = 32, overlap: int = DEFAULT_OVERLAP,
+                 extension: int = DEFAULT_EXTENSION):
+        self.n_channels = n_channels
+        self.group = group
+        self.sb_row = sb_row
+        self.super_block = group * sb_row     # a channel's, a push
+        self.n_rows = n_channels * group
+        self.frame_slots = frame_slots
+        self.overlap = overlap
+        self.extension = extension
+        self.step = sh.make_multichip_step(
+            mesh, frame_slots=frame_slots, overlap=overlap,
+            extension=extension)
+        self._held: Optional[np.ndarray] = None   # [n_ch, group*sb_row]
+        self._held_base = 0                        # abs channel sample
+        self._base = 0
+        # per-channel chains and counters
+        self._prev_tail_ch = np.zeros((n_channels, overlap), np.int16)
+        self._last_starts: List[int] = [-(10 ** 9)] * n_channels
+        self._last_bad: List[int] = [-(10 ** 9)] * n_channels
+        self.received = [0] * n_channels
+        self.wrong_crc = [0] * n_channels
+        self.wrong_size = [0] * n_channels
+        self.last_peak = [0] * n_channels
+
+    def _account(self, ci: int, ok, bad, lost2: int):
+        """Dedup channel ``ci``'s merged (start, end, Frame) and (bad
+        start,) lists against its chains, count them and return the kept
+        frames."""
+        kept = sh.dedup_by_start(ok, self._last_starts[ci])
+        bad_kept = sh.dedup_by_start(bad, self._last_bad[ci])
+        if kept:
+            self._last_starts[ci] = kept[-1][0]
+        if bad_kept:
+            self._last_bad[ci] = bad_kept[-1][0]
+        self.received[ci] += len(kept)
+        self.wrong_crc[ci] += len(bad_kept)
+        self.wrong_size[ci] += lost2
+        return kept
+
+    def _drain_grouped(self, tp, base: int):
+        """Offset each row's local frames to channel-absolute positions,
+        merge the rows of each channel in segment order, dedup across
+        row seams and pushes, update the counters."""
+        ok_rows, bad_rows, l2, pk = sh.drain_timepar_frames(
+            tp, self.frame_slots, raw=True)
+        lost2 = l2.sum(axis=1)
+        g = self.group
+        self.last_peak = [int(pk[ci * g:(ci + 1) * g].max())
+                          for ci in range(self.n_channels)]
+        out = []
+        for ci in range(self.n_channels):
+            merged, merged_bad, l2_ch = [], [], 0
+            for r in range(g):
+                row = ci * g + r
+                off = base + r * self.sb_row
+                merged += [(off + st, off + en, fr)
+                           for st, en, fr in ok_rows[row]]
+                merged_bad += [(off + st,) for (st,) in bad_rows[row]]
+                l2_ch += int(lost2[row])
+            out.append(self._account(ci, merged, merged_bad, l2_ch))
+        return out
+
+    def _run_grouped(self, block: np.ndarray, base: int,
+                     next_first_head: np.ndarray):
+        """A full grouped push: every row fully valid, extensions real."""
+        g, sbr, ov, ext = (self.group, self.sb_row, self.overlap,
+                           self.extension)
+        rows = block.reshape(self.n_channels * g, sbr)
+        prev_tail = np.empty((self.n_rows, ov), np.int16)
+        next_head = np.empty((self.n_rows, ext), np.int16)
+        for ci in range(self.n_channels):
+            for r in range(g):
+                row = ci * g + r
+                prev_tail[row] = (rows[row - 1, -ov:] if r > 0
+                                  else self._prev_tail_ch[ci])
+                next_head[row] = (rows[row + 1, :ext] if r < g - 1
+                                  else next_first_head[ci])
+        # per-row absolute phase offsets: local coordinates hide each
+        # segment's true position from the step's grid-phase DPLL init
+        row_abs = base + np.tile(np.arange(g, dtype=np.int64) * sbr,
+                                 self.n_channels)
+        phase = ((C.PLL_INC * (row_abs % 65536)) % 65536).astype(np.int32)
+        tp = self.step(rows, _int32(sbr + ext), 0, prev_tail, next_head,
+                       row_phase=phase)
+        out = self._drain_grouped(tp, base)
+        self._prev_tail_ch = np.asarray(
+            rows[np.arange(self.n_channels) * g + (g - 1), -ov:])
+        return out
+
+    def _run_fallback(self, block: np.ndarray, base: int, n_valid: int):
+        """The final held block: ``group`` sequential row-padded steps
+        with the exact absolute valid_end (data may end mid-row)."""
+        g, sbr, ov, ext = (self.group, self.sb_row, self.overlap,
+                           self.extension)
+        data_end = base + n_valid
+        out = [[] for _ in range(self.n_channels)]
+        prev_tail = np.zeros((self.n_rows, ov), np.int16)
+        for r in range(g):
+            seg_base = base + r * sbr
+            if seg_base >= data_end and r > 0:
+                break
+            seg = np.zeros((self.n_rows, sbr), np.int16)
+            head = np.zeros((self.n_rows, ext), np.int16)
+            for ci in range(self.n_channels):
+                seg[ci] = block[ci, r * sbr:(r + 1) * sbr]
+                if r < g - 1:
+                    head[ci] = block[ci, (r + 1) * sbr:(r + 1) * sbr + ext]
+                prev_tail[ci] = (block[ci, r * sbr - ov:r * sbr]
+                                 if r > 0 else self._prev_tail_ch[ci])
+            tp = self.step(seg, _int32(min(data_end, seg_base + sbr + ext)),
+                           _int32(seg_base), prev_tail, head)
+            ok_rows, bad_rows, l2, pk = sh.drain_timepar_frames(
+                tp, self.frame_slots, raw=True)
+            lost2 = l2.sum(axis=1)
+            self.last_peak = [int(pk[ci].max())
+                              for ci in range(self.n_channels)]
+            for ci in range(self.n_channels):
+                out[ci] += self._account(ci, ok_rows[ci], bad_rows[ci],
+                                         int(lost2[ci]))
+            for ci in range(self.n_channels):
+                self._prev_tail_ch[ci] = seg[ci, -ov:]
+        return out
+
+    # checkpoint/resume: the same contract as TimeParSession.snapshot
+    _SNAP_KEYS = ("_held", "_held_base", "_prev_tail_ch", "_base",
+                  "_last_starts", "_last_bad", "received", "wrong_crc",
+                  "wrong_size")
+    snapshot = TimeParSession.snapshot
+    restore = TimeParSession.restore
+
+    def push(self, samples: np.ndarray):
+        """samples: int16 [n_channels, group*sb_row].  Returns the
+        PREVIOUS super-block's per-channel (start, end, Frame) lists, or
+        None for the first push."""
+        s, t = samples.shape
+        assert s == self.n_channels and t == self.super_block, (s, t)
+        out = None
+        if self._held is not None:
+            next_first_head = np.asarray(samples[:, :self.extension])
+            out = self._run_grouped(self._held, self._held_base,
+                                    next_first_head)
+        self._held = np.asarray(samples, dtype=np.int16)
+        self._held_base = self._base
+        self._base += t
+        return out
+
+    def flush(self, n_valid: Optional[int] = None):
+        if self._held is None:
+            return [[] for _ in range(self.n_channels)]
+        nv = n_valid if n_valid is not None else self._held.shape[1]
+        out = self._run_fallback(self._held, self._held_base, nv)
         self._held = None
         return out

@@ -99,60 +99,49 @@ def test_cli_default_device_is_cuda(tmp_path):
     assert "torch.cuda.is_available() is False" in res.stderr
 
 
-# case: (directive as the log names it, its config line; None: set on
-# the Config itself, as the JAX package's --cluster flag does).  A mesh
-# of one device (meshshape 1 1) is ported; more devices are refused
-REFUSED = {
-    "meshshape": ("meshshape", "meshshape 2 4"),
-    "meshshape 1 2": ("meshshape", "meshshape 1 2"),
-    "meshshape 2 1": ("meshshape", "meshshape 2 1"),
-    "cluster": ("cluster", None),
+# case: the config lines (None: the cluster settings set on the Config
+# itself, as the --cluster flag does, in a process that joined no group).
+# Each was refused while the grid and the cluster were not ported
+GRID_CASES = {
+    "meshshape": "meshshape 2 4",
+    "meshshape 1 2": "meshshape 1 2",
+    "meshshape 2 1": "meshshape 2 1",
+    "cluster": None,
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_cli_refuses_unhonoured_directive(case, tmp_path, caplog):
-    """A config that sets a directive whose path is not ported is refused
-    before anything is decoded: rc 1, the directive named in the log
-    (for a mesh, with the devices it asks for), no message line."""
-    from gnuais_tpu_torch import cli
-    from gnuais_tpu_torch.config import read_config
-    directive, line = REFUSED[case]
-    assert directive in {name for name, _ in cli.UNHONOURED}
-    conf = tmp_path / "gnuais.conf"
-    conf.write_text("soundchannels mono\n" + (line or "") + "\n")
-    cfg = read_config(str(conf))
-    if line is None:
-        cfg.cluster_coordinator, cfg.cluster_nprocs = "localhost:1234", 2
-    cfg.sound_in_file = str(FIX / "standard_capture.raw")
-    out = []
-
-    class Sink:
-        def write(self, text):
-            out.append(text)
-
-        def flush(self):
-            pass
-
-    with caplog.at_level("CRITICAL", logger="gnuais"):
-        rc = cli.run_decode(cfg, "cpu", out_stream=Sink())
-    assert rc == 1
-    assert directive in caplog.text
+@pytest.mark.parametrize("case", sorted(GRID_CASES))
+def test_cli_honours_grid_and_cluster_directives(case, tmp_path,
+                                                 monkeypatch):
+    """A grid of several devices (logical shards of the CPU here; a mono
+    capture on 2 streams rows takes the grouped session) and the cluster
+    settings decode the fixture to the JAX CLI's stdout and counters,
+    which are the reference's (8192-sample shards keep the plain B2
+    loop short)."""
+    line = GRID_CASES[case]
+    conf = (line + "\ntimeparblock 8192") if line else ""
+    fields = ({} if line else dict(cluster_coordinator="localhost:1234",
+                                   cluster_nprocs=2, cluster_procid=0))
+    res = {pkg: station_run(pkg, conf, tmp_path / pkg, monkeypatch,
+                            **fields) for pkg in ("jax", "torch")}
+    (rc_j, out_j, nmea_j, log_j), (rc_t, out_t, nmea_t, log_t) = \
+        res["jax"], res["torch"]
+    assert rc_j == rc_t == 0, log_t[-800:]
+    assert out_t == out_j == (FIX / "standard_capture.stdout").read_text()
+    assert nmea_t == nmea_j
+    assert SUMMARY in log_t and SUMMARY in log_j
     if line:
         s_ax, t_ax = map(int, line.split()[1:])
-        assert f"over {s_ax * t_ax} devices" in caplog.text
-    assert out == []
+        assert f"Mesh decode: {s_ax}x{t_ax} devices" in log_t
+        assert ("row segments" in log_t) == (s_ax > 1)
 
 
-def test_cli_unhonoured_is_exactly_the_unported_paths():
-    """The IQ input, the lanes (``streams``) and a mesh of one device are
-    ported; a mesh of several devices and the cluster are not."""
+def test_cli_has_no_unhonoured_directives():
+    """Every directive the JAX CLI honours has its path in the port: the
+    refusal list and its helper are gone."""
     from gnuais_tpu_torch import cli
-    from gnuais_tpu_torch.config import Config
-    assert [name for name, _ in cli.UNHONOURED] == ["meshshape", "cluster"]
-    ported = Config()
-    ported.input_format, ported.streams, ported.meshshape = "iq", 4, (1, 1)
-    assert not any(is_set(ported) for _, is_set in cli.UNHONOURED)
+    assert not hasattr(cli, "UNHONOURED")
+    assert not hasattr(cli, "_grid_devices")
 
 
 class Sentences:
@@ -183,11 +172,11 @@ class Clock:
 
 
 def station_run(pkg, conf_text, d, monkeypatch, backend="golden",
-                level=logging.INFO):
+                level=logging.INFO, **fields):
     """The fixture through ``pkg``'s ``run_decode`` ("jax" or "torch")
     with the config ``conf_text`` (``{d}`` names the directory ``d`` of
-    this run), the NMEA socket replaced by a recorder.  Returns (rc,
-    stdout, sentences, log text)."""
+    this run) and ``fields`` set on it, the NMEA socket replaced by a
+    recorder.  Returns (rc, stdout, sentences, log text)."""
     import io
     from gnuais_tpu import cli as jcli
     from gnuais_tpu import config as jconfig
@@ -200,6 +189,8 @@ def station_run(pkg, conf_text, d, monkeypatch, backend="golden",
                     + conf_text.format(d=d) + "\n")
     cfg = config.read_config(str(conf))
     cfg.sound_in_file = str(FIX / "standard_capture.raw")
+    for k, v in fields.items():
+        setattr(cfg, k, v)
     rec = Sentences()
     monkeypatch.setattr(cli, "NmeaSocketServer", lambda: rec)
     out, logbuf = io.StringIO(), io.StringIO()
@@ -367,13 +358,13 @@ def test_cli_honours_directive(directive, tmp_path, monkeypatch):
         assert data == (dirs["jax"] / "tty").read_bytes()
 
 
-def test_cli_refuses_iq_input_in_a_subprocess(tmp_path):
+def test_cli_refuses_iq_input_in_a_subprocess(tmp_path, monkeypatch):
     """The reproduction of a repaired fault: float32 IQ bytes
     behind ``inputformat iq`` are never decoded as int16 audio.  Since
     the IQ front end is ported they go through it (the log says so, and
     the sample count is the IQ frames', not the bytes' over 2), and the
-    modulated message comes out; a mesh of more devices than the process
-    has is still refused before anything is read."""
+    modulated message comes out; on a 2 x 4 grid (logical shards of the
+    CPU) too, with the JAX CLI's stdout and counters."""
     from gnuais_tpu_torch.golden import encoder as E
     audio = E.synthesize_capture([E.make_type18(258123456, 60.39, 5.32)])
     x = np.repeat(audio.astype(np.float64) / 32767.0, 4)
@@ -391,9 +382,22 @@ def test_cli_refuses_iq_input_in_a_subprocess(tmp_path):
     assert "Streaming IQ from file" in res.stderr
     assert f"Processed {len(audio)} samples" in res.stderr
     assert "type 18 mmsi 258123456" in res.stdout
-    conf.write_text("soundchannels mono\ninputformat iq\nmeshshape 2 4\n")
+    conf.write_text("soundchannels mono\ninputformat iq\nmeshshape 2 4\n"
+                    "timeparblock 4096\n")
     res = _cli("--device", "cpu", "--backend", "exact", "-c", str(conf),
                "-l", str(path), cwd=tmp_path)
-    assert res.returncode == 1
-    assert res.stdout == ""
-    assert "meshshape" in res.stderr
+    assert res.returncode == 0, res.stderr
+    assert "Mesh decode: 2x4 devices" in res.stderr
+    assert "type 18 mmsi 258123456" in res.stdout
+    # the JAX CLI on the same config and file, in this process
+    import io
+    from gnuais_tpu import cli as jcli
+    from gnuais_tpu.config import read_config as jax_read_config
+    cfg = jax_read_config(str(conf))
+    cfg.sound_in_file = str(path)
+    monkeypatch.setattr(jcli, "NmeaSocketServer", Sentences)
+    out = io.StringIO()
+    assert jcli.run_decode(cfg, out_stream=out) == 0
+    assert res.stdout == out.getvalue()
+    assert "A: Received correctly: 1 packets, wrong CRC: 0 packets, " \
+        "wrong size: 0 packets" in res.stderr

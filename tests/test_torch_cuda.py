@@ -787,3 +787,97 @@ def test_iq_front_end_on_card_matches_cpu(cuda, tmp_path):
     d = a.astype(np.int32) - b.astype(np.int32)
     assert a.shape == b.shape == (100_000,)
     assert np.abs(d).max() <= 1 and np.count_nonzero(d) <= len(d) // 1000
+
+
+def _cards(n: int):
+    """The first n cards, or a skip where there are fewer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices, has "
+                    f"{torch.cuda.device_count()}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.fixture
+def two_cards():
+    return _cards(2)
+
+
+@pytest.fixture
+def four_cards():
+    return _cards(4)
+
+
+def _grid_session(mesh, x, sb):
+    """TimeParSession over ``mesh`` on the rows x in pushes of sb, a short
+    final block; returns (frames, counters) and the B2 launches."""
+    from gnuais_tpu_torch.parallel.timepar import TimeParSession
+    sess = TimeParSession(mesh, x.shape[0], sb)
+    before = fused.pipeline_fused.launches
+    got = []
+    for b in range(x.shape[1] // sb):
+        out = sess.push(x[:, b * sb:(b + 1) * sb])
+        if out:
+            got.append(out)
+    got.append(sess.flush(n_valid=sb - 96))
+    flat = [[(s, e, f.payload_bits.tobytes()) for s, e, f in lst]
+            for out in got for lst in out]
+    return ((flat, (sess.received, sess.wrong_crc, sess.wrong_size,
+                    sess.last_peak)),
+            fused.pipeline_fused.launches - before)
+
+
+def test_grid_repeated_on_one_card_matches_cpu(cuda):
+    """A 2 x 2 grid whose four shards all lie on one card (a device list
+    may repeat a card): kernel B2 once a shard a decoded block, the CPU
+    grid's frames and counters."""
+    from gnuais_tpu_torch.parallel.mesh import make_grid_mesh
+    x = captures.noisy_frames(64, 4 * 8192, seed=9)
+    card, n_card = _grid_session(make_grid_mesh(2, 2, devices=[cuda] * 4),
+                                 x, 8192)
+    cpu, _ = _grid_session(make_grid_mesh(2, 2, device="cpu"), x, 8192)
+    assert n_card == 4 * 4
+    assert card == cpu and sum(card[1][0]) > 64
+
+
+def test_b2_launches_on_a_second_card(two_cards):
+    """Kernel B2 on cuda:1 while cuda:0 is the current device: the launch
+    runs there, its outputs lie there and equal the plain version's, and
+    decode_block and the stream-sharded step keep everything on the
+    card they were given."""
+    from gnuais_tpu_torch.parallel.mesh import make_stream_mesh
+    from gnuais_tpu_torch.parallel.sharded import make_sharded_decode
+    dev = two_cards[1]
+    torch.cuda.set_device(0)
+    x = torch.from_numpy(captures.mixed(37, T, seed=11)).to(dev)
+    c = init_carry(37, dev)
+    args = (x, T - 333, c.history, c.dpll, c.hdlc)
+    before = fused.pipeline_fused.launches
+    k = fused.pipeline_fused(*args, block_base=77)
+    assert fused.pipeline_fused.launches == before + 1
+    assert all(t.device == dev for t in _flat(k))
+    _assert_same(k, fused.pipeline_fused_reference(*args, block_base=77))
+    carry, frames, peak = decode_block(x, T, c, fused_pipeline=True,
+                                       device_crc=True)
+    assert all(t.device == dev for t in _flat((carry, frames, peak)))
+    step = make_sharded_decode(make_stream_mesh(2, devices=two_cards[::-1]),
+                               fused_pipeline=True)
+    xs = x[:36]
+    c2, f2, p2 = step(xs, T, init_carry(36, dev))
+    c1, f1, p1 = decode_block(xs, T, init_carry(36, dev),
+                              fused_pipeline=True)
+    assert f2.count.device == dev
+    _assert_same((c2, f2, p2), (c1, f1, p1))
+
+
+def test_grid_2x2_on_four_cards_matches_cpu(four_cards):
+    """A 2 x 2 grid on four cards (halos between cards) gives the CPU
+    grid's frames and counters, kernel B2 on each card."""
+    from gnuais_tpu_torch.parallel.mesh import make_grid_mesh
+    x = captures.noisy_frames(64, 4 * 8192, seed=12)
+    mesh = make_grid_mesh(2, 2, devices=four_cards)
+    card, n_card = _grid_session(mesh, x, 8192)
+    cpu, _ = _grid_session(make_grid_mesh(2, 2, device="cpu"), x, 8192)
+    assert n_card == 4 * 4
+    assert card == cpu and sum(card[1][0]) > 64

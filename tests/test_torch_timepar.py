@@ -240,18 +240,30 @@ def test_session_matches_jax_with_snapshot_across_packages():
         assert _counters(b)[3] == _counters(ref_j)[3]
 
 
-def test_grid_mesh_refuses_more_devices_than_the_process_has():
+def test_grid_mesh_refuses_more_devices_than_the_process_has(monkeypatch):
+    """A grid of more cards than the process sees is refused (the card
+    count patched: no card is touched), as is an explicit device list
+    shorter than the grid; on the CPU a grid of any size is that many
+    logical shards of the one CPU device, and the step runs on it."""
     from gnuais_tpu_torch.parallel import sharded
     from gnuais_tpu_torch.parallel.mesh import make_grid_mesh
     mesh = make_grid_mesh(1, 1, device="cpu")
     assert mesh.shape == {"streams": 1, "time": 1}
     assert mesh.device == torch.device("cpu")
+    grid = make_grid_mesh(2, 4, device="cpu")
+    assert grid.devices == (torch.device("cpu"),) * 8
+    assert not grid.multiproc and grid.local_streams() == [0, 1]
     with pytest.raises(ValueError,
-                       match="needs 8 devices; this process has 1"):
-        make_grid_mesh(2, 4, device="cpu")
+                       match="needs 8 devices; this process has 2"):
+        make_grid_mesh(2, 4, devices=["cpu", "cpu"])
     two = make_grid_mesh(1, 2, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="1 x 1 only"):
-        sharded.make_multichip_step(two)
+    assert callable(sharded.make_multichip_step(two))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError,
+                       match="needs 4 devices; this process has 2 .cuda."):
+        make_grid_mesh(2, 2, device="cuda")
 
 
 @pytest.mark.parametrize("asked, current, first", [
