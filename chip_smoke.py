@@ -8,11 +8,11 @@ raises and exits non-zero:
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Build: one nvcc per kernel source of gnuais_tpu_torch/csrc (B1
-   pipeline_compact.cu, B2 pipeline_fused.cu, B3 frontend.cu, B4
-   dpll.cu, the deframer hdlc.cu, the mxu probe fir_probe.cu, R1 and R2
-   roofline.cu), all
-   started together, linked into one library (registers and spills
-   printed per kernel).
+   pipeline_compact.cu, B2 pipeline_fused.cu (its prefiltered mode
+   too), B3 frontend.cu, B4 dpll.cu, the deframer hdlc.cu, the mxu probe fir_probe.cu, R1 and
+   R2 roofline.cu), all started together, linked into one library
+   (registers and spills printed per kernel); B2's strip variants
+   (pipeline_strip.cu) are not in it (phase 22).
 3. Parity at small shapes, each kernel against its plain PyTorch version
    on the card, bitwise on every output and carry leaf.  B2 and B1 (the
    exact FIR): S = 1, 37, 256 at T = 4096 (and T = 1000) on encoder
@@ -179,18 +179,40 @@ raises and exits non-zero:
    (CUDA_VISIBLE_DEVICES), else both on card 0: rank 0's stdout that of
    the meshshape 1 1 run, rank 1's empty, both ranks' counters equal;
    each rank counts its own launches, which this process adds up.
+22. Kernel B2's other modes and the measurement tools, on fleet block 0
+   (4096 x 49,152).  (a) B2 prefiltered (the kernel filters nothing) on
+   the block's fir_exact: against its plain version on every leaf,
+   row-major and time-major, bitwise, the history handed back; its
+   frames and carry those of phase 6's B2 vpu on the raw block; on the
+   block's fir_conv every payload equal to the encoded one.  (d) The
+   strip libraries (pipeline_strip.cu, one nvcc a strip set, all
+   started together, nothing else running); each strip flag in vpu and
+   mxu held by its invariant against the unstripped kernel
+   (gnuais_tpu_torch.diag_strip.check_strip).  (b) The FIR split:
+   fir_conv and prefiltered B2 beside B2 in every FIR mode (CUDA
+   events).  Then, with the counts of B2's modes set to 0: (d)
+   diag_strip's protocol at K = 2 for every strip variant in vpu and
+   mxu and on prefiltered input (a table of ms and ns a step);
+   (e) python -m gnuais_tpu_torch.profile_flagship --iters 2 in a
+   process of its own (device time by kernel, the idle share; its trace
+   must hold the 2 launches of B1) and its parser on 3 process() calls
+   of the main path after a warm-up call (3 launches of B2); (f)
+   latency_bench on 1x1:4096 and the sequential station (p50/p90 in
+   samples); (g) diag_shard, 16 pairs.  B2's prefiltered mode and strip
+   variants must each have launched there (diag_strip's runs).
 The plain versions of phase 3's lane and session shapes and of phases
-18 and 19 run after phase 21 (no timed phase shares the host with
+18 and 19 run after phase 22 (no timed phase shares the host with
 them), each in a spawned CPU process of its own, and are held against
 the kernels' outputs.
-Then one JSON line of the twelve kernel modes (launch counts from their
+Then one JSON line of the fourteen kernel modes (launch counts from their
 own paths, each count set to 0 just before its path: B2 over phases
 4-5, 15, 16, 17 (sequential and mesh), 19, 20 and 21 (the ranks' too),
 B1 in phase 7's pretiled
 call and phases 17 (lanes) and 18, B2 lobe and B1 lobe over
 phase 8, B1 mxu and B2 mxu over phases 7m and 8m, B3 over phase 9, B4
 over phases 12 and 15, the deframer on group codes over phase 9 and on
-sample codes over phases 12 and 15, R1 and R2 over phase 14's table;
+sample codes over phases 12 and 15, R1 and R2 over phase 14's table,
+B2 prefiltered over diag_strip's runs in phase 22;
 times and bounds at the fleet size, R1's and R2's at 4096 streams and
 4096 steps), a check
 that neither JAX nor the JAX package was imported, the card's name and
@@ -345,8 +367,7 @@ def phase_build():
     _build.library()
     info = [l for l in _build.build_log.splitlines() if "registers" in l
             or "spill" in l or "entry function" in l]
-    print(f"[2 build] {path.relative_to(REPO)} from "
-          f"{len(sorted((REPO / 'gnuais_tpu_torch' / 'csrc').glob('*.cu')))} "
+    print(f"[2 build] {path.relative_to(REPO)} from {len(_build._sources()[0])} "
           f".cu files in {time.time() - t0:.1f} s", flush=True)
     for line in info:
         print("  " + line.strip(), flush=True)
@@ -734,6 +755,7 @@ def phase_full_block(x0, carry0, carry1, fir_mode):
                          bound_ms=b_ms, bound_by=b_by, pretiled_ms=(
                              pre2_ms if name == "B2" else pre1_ms))
     out["B1"]["out"] = k1
+    out["B2"]["out"], out["B2"]["plain"] = k2, p2
     print(f"[6 full block] {fir_mode} S={FLEET_STREAMS} T={FLEET_BLOCK}: B2 "
           f"wrapper {ms2:.3f} ms (bound {out['B2']['bound_ms']:.3f} ms by "
           f"{out['B2']['bound_by']}), B1 wrapper {ms1:.3f} ms (bound "
@@ -3101,6 +3123,264 @@ def phase_cluster(tmp: Path, iq_mesh):
     return launches, times
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: kernel B2's other modes and the measurement tools
+# ---------------------------------------------------------------------------
+
+STRIP_VARIANTS = ("", "fir", "hdlc", "book", "shift", "snap", "flush")
+STRIP_BLOCKS = 2           # diag_strip's K in phase 22
+STRIP_MODES = ("vpu", "mxu")
+SHARD_PAIRS = 16
+LATENCY_CONFIGS = "1x1:4096 seq"
+MAIN_PATH_CALLS = 3        # process() calls profiled in 22(e)
+
+
+def candidate_frames(out, slots: int):
+    """B2's candidates compacted into ``slots`` dense slots and drained
+    on the host, CRC-checked (``pipeline.extract_frames``)."""
+    import torch
+    from gnuais_tpu_torch.ops import demod, fused
+    from gnuais_tpu_torch.runtime.pipeline import extract_frames
+    count, words, length, start, end, lost2, over, *_ = fused.compact_slots(
+        out, slots)
+    return extract_frames(demod.FrameBatch(
+        words, length, start, end, count.clamp(max=slots), lost2,
+        over + (count - slots).clamp(min=0), torch.zeros_like(count)))
+
+
+def phase_prefiltered(x0, want0, carry0, b2_vpu):
+    """22(a) Prefiltered B2 on fleet block 0 at full size: on the exact
+    FIR of the block (fir.fir_exact), kernel against plain version on
+    all 10 leaves, row-major and time-major, bitwise, the history handed
+    back as it went in; its frames and DPLL/HDLC carry those of phase 6's
+    B2 vpu on the raw block (``b2_vpu``), bitwise; on fir.fir_conv of the
+    block, every stream's payloads the encoded ones.  Returns (the
+    exact-FIR input, the fir_conv input, {max_abs_err, plain_ms})."""
+    import torch
+    from gnuais_tpu_torch.ops import fir, fused
+    x = torch.from_numpy(x0).cuda()
+    c = carry0
+    filt, _ = fir.fir_exact(x, c.history)
+    args = (filt, FLEET_BLOCK, c.history, c.dpll, c.hdlc)
+    k = fused.pipeline_fused(*args, prefiltered=True)
+    kt = fused.pipeline_fused(filt.t().contiguous(), *args[1:],
+                              prefiltered=True, assume_full=True,
+                              pretiled_streams=FLEET_STREAMS)
+    plain_ms, p = host_ms(lambda: fused.pipeline_fused_reference(
+        *args, prefiltered=True))
+    err = max(compare(k, p, "prefiltered B2 vs plain"),
+              compare(kt, p, "time-major prefiltered B2 vs plain"))
+    check(k[7] is c.history and kt[7] is c.history,
+          "prefiltered B2 did not hand the history back")
+    compare(k[:7] + k[8:], b2_vpu[:7] + b2_vpu[8:],
+            "prefiltered B2 on fir_exact vs B2 vpu on the raw block")
+    conv, _ = fir.fir_conv(x, c.history)
+    kc = fused.pipeline_fused(conv, *args[1:], prefiltered=True)
+    n = check_payloads(candidate_frames(kc, FLEET_SLOTS), want0,
+                       "prefiltered B2 on fir_conv")
+    print(f"[22a prefiltered] B2 prefiltered on fir_exact of block 0 "
+          f"({FLEET_STREAMS} x {FLEET_BLOCK} float32), row-major and "
+          f"time-major: == plain on all {len(leaves(k))} leaves, the history "
+          f"handed back; frames and carry == phase 6's B2 vpu on the raw "
+          f"block, bitwise ({int(k[0].sum())} candidates); on fir_conv: all "
+          f"{n} payloads equal the encoded ones; plain {plain_ms:.1f} ms",
+          flush=True)
+    return filt, conv, dict(max_abs_err=err, plain_ms=plain_ms)
+
+
+def phase_strip_checks(x0, carry0):
+    """22(d), first half: every strip variant of STRIP_VARIANTS in
+    STRIP_MODES on fleet block 0 against the unstripped
+    kernel, held by its invariant (``diag_strip.check_strip``; ``fir``
+    against prefiltered B2 on the raw samples cast to float32)."""
+    import torch
+    from gnuais_tpu_torch import diag_strip
+    from gnuais_tpu_torch.ops import fused
+    x = torch.from_numpy(x0).cuda()
+    c = carry0
+    raw = x.to(torch.float32)
+    for mode in STRIP_MODES:
+        ref = fused.pipeline_fused(x, FLEET_BLOCK, c.history, c.dpll, c.hdlc,
+                                   fir_mode=mode)
+        for strip in STRIP_VARIANTS[1:]:
+            out = fused.pipeline_fused(x, FLEET_BLOCK, c.history, c.dpll,
+                                       c.hdlc, fir_mode=mode, strip=strip)
+            rest = ",".join(f for f in strip.split(",") if f != "fir")
+            fir_ref = fused.pipeline_fused(
+                raw, FLEET_BLOCK, c.history, c.dpll, c.hdlc,
+                prefiltered=True, strip=rest) if "fir" in strip else None
+            diag_strip.check_strip(strip, out, ref, c, fir_ref)
+    print(f"[22d strips] {', '.join(STRIP_VARIANTS[1:])} in "
+          f"{', '.join(STRIP_MODES)} on block 0: each held by "
+          f"its invariant (the DPLL carry; fir == prefiltered B2 on the raw "
+          f"samples; the HDLC state; the counts)", flush=True)
+
+
+def phase_fir_split(x0, conv, filt, carry0, card):
+    """22(b) The FIR split on fleet block 0 (CUDA events, each a median of
+    5 after a warm-up): fir_conv and prefiltered B2 on its output, fir_exact
+    and prefiltered B2 on its output, beside B2 in every FIR mode.
+    Returns the ms by name."""
+    import torch
+    from gnuais_tpu_torch.ops import fir, fused
+    x = torch.from_numpy(x0).cuda()
+    c = carry0
+    args = (FLEET_BLOCK, c.history, c.dpll, c.hdlc)
+    ms = {}
+    ms["fir_conv"], _ = device_ms(lambda: fir.fir_conv(x, c.history))
+    ms["fir_exact"], _ = device_ms(lambda: fir.fir_exact(x, c.history))
+    ms["prefiltered"], _ = device_ms(lambda: fused.pipeline_fused(
+        filt, *args, prefiltered=True))
+    ms["prefiltered conv"], _ = device_ms(lambda: fused.pipeline_fused(
+        conv, *args, prefiltered=True))
+    for mode in fused.FIR_MODES:
+        ms[mode], _ = device_ms(lambda: fused.pipeline_fused(
+            x, *args, fir_mode=mode))
+    print(f"[22b FIR split] block 0 ({FLEET_STREAMS} x {FLEET_BLOCK}), medians "
+          f"of 5 by CUDA events: fir_conv {ms['fir_conv']:.3f} ms + B2 "
+          f"prefiltered {ms['prefiltered conv']:.3f} ms = "
+          f"{ms['fir_conv'] + ms['prefiltered conv']:.3f} ms; B2 prefiltered "
+          f"on fir_exact {ms['prefiltered']:.3f} ms (fir_exact in torch ops "
+          f"{ms['fir_exact']:.3f}); B2 vpu {ms['vpu']:.3f}, lobe "
+          f"{ms['lobe']:.3f}, mxu {ms['mxu']:.3f}; {card}", flush=True)
+    return ms
+
+
+def phase_tools(tmp: Path, blocks, expected, card):
+    """22(d), (e), (f), (g): the four tools on their paths.  (d)
+    diag_strip's protocol at K = STRIP_BLOCKS for every strip variant in
+    STRIP_MODES and on prefiltered input; (e) profile_flagship with 2
+    traced dispatches, and its trace parser on MAIN_PATH_CALLS process()
+    calls of the main path; (f) latency_bench on LATENCY_CONFIGS; (g)
+    diag_shard with SHARD_PAIRS pairs.  Returns the measurements."""
+    import torch
+    from gnuais_tpu_torch import diag_shard, diag_strip, latency_bench
+    from gnuais_tpu_torch import profile_flagship as pf
+    from gnuais_tpu_torch.runtime.pipeline import BatchPipeline
+    size = dict(n_streams=FLEET_STREAMS, block=FLEET_BLOCK, device="cuda")
+    rows = []
+    for mode in STRIP_MODES:
+        for strip in STRIP_VARIANTS:
+            r = diag_strip.run(strip, mode, STRIP_BLOCKS, **size)
+            rows.append((mode, strip or "-", "raw", r))
+    r = diag_strip.run("", "vpu", STRIP_BLOCKS, prefiltered=True, **size)
+    rows.append(("none", "-", "filtered", r))
+    print(f"[22d strips] diag_strip's protocol, K = {STRIP_BLOCKS} blocks of "
+          f"{FLEET_STREAMS} x {FLEET_BLOCK}, 8 timed dispatches "
+          f"(host clock, the count read back), {card}:", flush=True)
+    print(f"  {'fir':<4} {'strip':<6} {'input':<8} {'median ms':>9} "
+          f"{'best ms':>8} {'ns/step':>8} {'Gsamp/s':>8} counts", flush=True)
+    for mode, strip, kind, r in rows:
+        print(f"  {mode:<4} {strip:<6} {kind:<8} {r['median_ms']:>9.3f} "
+              f"{r['best_ms']:>8.3f} {r['ns_step']:>8.2f} "
+              f"{r['gsamp_s']:>8.2f} "
+              f"{'checked' if r['checked'] else 'not checked'}", flush=True)
+
+    # the tool as a user runs it, in a process of its own
+    tool = subprocess.run(
+        [sys.executable, "-m", "gnuais_tpu_torch.profile_flagship",
+         "--iters", "2", "--streams", str(FLEET_STREAMS), "--block-len",
+         str(FLEET_BLOCK), "--superblock", str(FLAGSHIP_COPIES), "--outdir",
+         str(tmp / "profile_flagship"), "--device", "cuda"],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    check(tool.returncode == 0, f"profile_flagship exited {tool.returncode}: "
+                                f"{tool.stderr[-2000:]}")
+    flag = pf.parse_trace(tmp / "profile_flagship" / "trace.json")
+    b1 = sum(n for k, n in flag["count"].items() if "pipeline_kernel" in k)
+    check(b1 == 2, f"the flagship trace holds {b1} B1 launches, not 2")
+    print(f"[22e profile] python -m gnuais_tpu_torch.profile_flagship "
+          f"--iters 2 (the flagship superblock, {FLAGSHIP_COPIES} x "
+          f"{FLEET_BLOCK}, {FLEET_STREAMS} streams, pretiled, mxu, one B1 "
+          f"launch a dispatch):\n" + tool.stdout.strip(), flush=True)
+    pipe = BatchPipeline(FLEET_STREAMS, block_len=FLEET_BLOCK,
+                         frame_slots=FLEET_SLOTS, fused_pipeline=True,
+                         device_crc=True, device="cuda")
+    warm = BatchPipeline(FLEET_STREAMS, block_len=FLEET_BLOCK,
+                         frame_slots=FLEET_SLOTS, fused_pipeline=True,
+                         device_crc=True, device="cuda")
+    todo = iter(range(MAIN_PATH_CALLS))
+
+    def process():
+        b = next(todo)
+        check_payloads(pipe.process(blocks[b]), expected[b],
+                       f"profiled process() block {b}")
+
+    main_prof, main_wall = pf.profile_window(
+        process, MAIN_PATH_CALLS, tmp / "profile_main", torch.device("cuda"),
+        warmup=lambda: check_payloads(warm.process(blocks[0]), expected[0],
+                                      "warm-up process()"))
+    b2 = sum(n for k, n in main_prof["count"].items()
+             if "pipeline_kernel" in k)
+    check(b2 == MAIN_PATH_CALLS, f"the main path's trace holds {b2} B2 "
+                                 f"launches, not {MAIN_PATH_CALLS}")
+    print(f"[22e profile] the main path, {MAIN_PATH_CALLS} process() calls "
+          f"(B2, compaction, CRC, the host drain) in {main_wall:.1f} ms "
+          f"under the profiler after a warm-up call; {card}\n"
+          + pf.format_profile(main_prof, MAIN_PATH_CALLS, top=8), flush=True)
+
+    lat = latency_bench.run(LATENCY_CONFIGS, device="cuda")
+    print(f"[22f latency] latency_bench on the card (40 type-1 frames, fed "
+          f"4096 samples at a time; p50/p90 in samples from frame end to "
+          f"stdout line, the first 80 %), {card}:", flush=True)
+    for r in lat:
+        # the sequential station decodes every frame; a session's count is
+        # printed as it is (a shared fault, ROADMAP section 3 item 8)
+        check(r["config"] != "seq" or r["decoded"] == r["total"],
+              f"the sequential station decoded {r['decoded']} of "
+              f"{r['total']}")
+        check(not r["refused"], f"latency config {r['config']} refused")
+        print("  " + latency_bench.format_row(r), flush=True)
+
+    shard = diag_shard.run(FLAGSHIP_COPIES, FLEET_STREAMS, SHARD_PAIRS,
+                           FLEET_BLOCK, device="cuda")
+    print(f"[22g shard] diag_shard, {SHARD_PAIRS} pairs of {FLAGSHIP_COPIES} "
+          f"blocks x "
+          f"{FLEET_STREAMS} streams (lobe, B2): direct "
+          f"{diag_shard.stats(shard['direct_ms'], shard['samples'])}; "
+          f"sharded on a one-shard mesh "
+          f"{diag_shard.stats(shard['sharded_ms'], shard['samples'])}; "
+          f"efficiency(med) {shard['efficiency']:.3f}, min-based "
+          f"{shard['min_ratio']:.3f}; {card}", flush=True)
+    return dict(strips=rows, flagship=flag, main=main_prof, latency=lat,
+                shard=shard)
+
+
+def phase_modes(tmp: Path, blocks, expected, carry0, full, card):
+    """Phase 22: B2's prefiltered mode and strip variants against their
+    references, the FIR split, then the tools on their paths with the
+    counts of B2's modes set to 0 just before and read just after.
+    Returns the kernels line's row of the prefiltered mode."""
+    import torch
+    from gnuais_tpu_torch.ops import _build, fused
+    x0 = blocks[0]
+    filt, conv, pre = phase_prefiltered(x0, expected[0], carry0,
+                                        full["B2"]["out"])
+    masks = [fused.strip_mask(s) for s in STRIP_VARIANTS[1:]]
+    build_ms, _ = host_ms(lambda: _build.build_strips(masks))
+    print(f"[22d strips] {len(masks)} strip libraries ({_build.STRIP_SOURCE}) "
+          f"built in {build_ms / 1e3:.1f} s", flush=True)
+    phase_strip_checks(x0, carry0)
+    ms = phase_fir_split(x0, conv, filt, carry0, card)
+    torch.cuda.synchronize()
+    fused.pipeline_fused.mode_launches.clear()
+    phase_tools(tmp, blocks, expected, card)
+    launches = dict(fused.pipeline_fused.mode_launches)
+    for key in ("prefiltered", "strip"):
+        check(launches.get(key, 0) > 0,
+              f"B2's {key} mode was not launched on the tools' paths")
+    print(f"[22 modes] launches on the tools' paths: B2 prefiltered "
+          f"{launches['prefiltered']}, strip variants {launches['strip']}",
+          flush=True)
+    out = fused.pipeline_fused(filt, FLEET_BLOCK, carry0.history, carry0.dpll,
+                               carry0.hdlc, prefiltered=True)
+    pre_bound = bound(((filt, carry0), out), 0)
+    print(f"[22 modes] B2 prefiltered {ms['prefiltered']:.3f} ms (bound "
+          f"{pre_bound[0]:.4f} ms by {pre_bound[1]}); {card}", flush=True)
+    return dict(max_abs_err=pre["max_abs_err"], ms=ms["prefiltered"],
+                plain_ms=pre["plain_ms"], bound_ms=pre_bound[0],
+                bound_by=pre_bound[1], launches=launches["prefiltered"])
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3222,6 +3502,10 @@ def main() -> int:
                                           per_block, ses_times)
         cl_launches, cl_times = timed("21 cluster", phase_cluster,
                                       Path(tmp), iq_times["mesh"])
+        # B2's other modes and the measurement tools, their counts set to
+        # 0 just before the tools' paths and read after them
+        modes = timed("22 kernel modes and tools", phase_modes, Path(tmp),
+                      blocks, expected, carry0, full, card)
     launches2 += station["B2"] + sup_launches
     launches4 += station["B4"]
     launches_hs += station["deframer"]
@@ -3298,6 +3582,8 @@ def main() -> int:
          roof_launches["R1"], roof["R1"], 0.0),
         ("roofline_stream", "roofline.cu", "tools/roofline.py:148",
          roof_launches["R2"], roof["R2"], 0.0),
+        ("pipeline_fused_prefiltered", "pipeline_fused.cu",
+         "gnuais_tpu/ops/fused.py:1031", modes["launches"], modes, 0.0),
     ]
     kernels = []
     for kname, source, replaces, launches, m, err in rows:

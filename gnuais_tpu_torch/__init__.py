@@ -18,9 +18,11 @@ time_parallel_decode`` (lanes), ``TimeParSession`` and
 ``GroupedTimeParSession`` (on a grid of cards, ``parallel.mesh``), the
 stream-sharded step ``parallel.sharded.make_sharded_decode``, the
 cluster of ``parallel.cluster``, the IQ readers of ``io.iq``, and the
-``gnuais-tpu-torch`` command (``gnuais_tpu_torch.cli``).  Every
-constructor takes an explicit ``device`` or grid; nothing picks one
-silently.
+``gnuais-tpu-torch`` command (``gnuais_tpu_torch.cli``), and the
+measurement tools (``profile_kernels``, ``roofline``, ``diag_strip``,
+``profile_flagship``, ``latency_bench``, ``diag_shard``, each ``python
+-m gnuais_tpu_torch.<tool>``).  Every constructor takes an explicit
+``device`` or grid; nothing picks one silently.
 """
 
 __version__ = "0.1.0"

@@ -116,3 +116,27 @@ def mixed(s: int, t: int, seed: int = 0) -> np.ndarray:
         if len(rows):
             x[rows] = build(len(rows), t, seed=seed + k)
     return x
+
+
+def build_batch(n_streams: int, block_len: int, frames_per_stream: int = 4,
+                seed: int = 0):
+    """The JAX bench's batch (``bench.py`` ``build_batch``, the port's
+    copy): ``frames_per_stream`` random payloads encoded 8 times with
+    lead-ins of 64 + 16 v bits, capture v on streams v, v + 8, ..., each
+    at the start of an int16 [S, block_len] block of zeros.  Returns
+    (batch, payloads per stream)."""
+    rng = np.random.default_rng(seed)
+    payloads = [E.random_payload(rng) for _ in range(frames_per_stream)]
+    variants = []
+    for v in range(min(8, n_streams)):
+        a = E.synthesize_capture(payloads, gap_bits=64,
+                                 lead_in_bits=64 + 16 * v)
+        if len(a) > block_len:
+            raise ValueError(f"capture of {len(a)} samples exceeds the "
+                             f"block of {block_len}")
+        variants.append(a)
+    batch = np.zeros((n_streams, block_len), dtype=np.int16)
+    for s in range(n_streams):
+        a = variants[s % len(variants)]
+        batch[s, :len(a)] = a
+    return batch, len(payloads)

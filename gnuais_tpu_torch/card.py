@@ -8,6 +8,7 @@ guide, throughput of arithmetic instructions, compute capability 9.0).
 
 from __future__ import annotations
 
+import subprocess
 from typing import Tuple
 
 HBM_TB_S = 3.35          # HBM3
@@ -26,3 +27,15 @@ def bound_ms(nbytes: float, *work: Tuple[float, float]) -> Tuple[float, str]:
     by_ops = max((ops / (rate * 1e9) for ops, rate in work), default=0.0)
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
+
+
+def smi() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    first card), to print beside every number a tool measures."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]

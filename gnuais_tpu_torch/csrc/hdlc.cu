@@ -9,9 +9,11 @@
 // the 15 x 32-bit register (hdlc_step, pipeline_step.cuh); a completed
 // frame lands in the candidate slots of its 64-slot chunk, at most
 // kMiniSlots = 2 a chunk, a later one counted in `over`, and wrong-size
-// stops at a position in [lost2_lo, lost2_hi) count in `lost2`: the
-// landing of kernel B2 (slot_step<true>, pipeline_kernel.cuh), so that
-// demod.compact_candidates runs on its output as it does after B2.
+// stops at a position in [lost2_lo, lost2_hi) count in `lost2`: kernel
+// B2's candidate slots, each frame written at its emission slot
+// (slot_step<true>, pipeline_kernel.cuh; B2 writes the same frames once
+// after their 32-sample chunk), so that demod.compact_candidates runs on
+// its output as it does after B2.
 //
 // Three input forms, each read where the caller holds it:
 // - group codes [M, pitch] uint8, time-major (B3's output): one byte a

@@ -13,6 +13,21 @@
 
 #include "pipeline_kernel.cuh"
 
+namespace {
+
+using gnuais::Fir;
+using gnuais::launch_pipeline_mode;
+
+int launch_dense(const gnuais::PipelineArgs& a, int fir_mode, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fir_mode == 0) return launch_pipeline_mode<Fir::kExact, false>(a, st);
+  if (fir_mode == 1) return launch_pipeline_mode<Fir::kLobe, false>(a, st);
+  if (fir_mode == 2) return launch_pipeline_mode<Fir::kMxu, false>(a, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
 // Launches the kernel on `stream` and returns cudaGetLastError(), so a
 // refused launch is reported to the caller.  fir_mode: 0 exact, 1 lobe,
 // 2 mxu; x is time-major [T, pitch] (row_major 0) or row-major
@@ -32,21 +47,22 @@ extern "C" int gnuais_pipeline_compact(
       static_cast<int32_t*>(dpll_out), static_cast<int32_t*>(hdlc_out),
       static_cast<int32_t*>(reg_out), S, T, n_valid, block_base, lost2_lo,
       lost2_hi, F, row_major, pitch};
-  return gnuais::launch_pipeline<false>(a, fir_mode, stream);
+  return launch_dense(a, fir_mode, stream);
 }
 
-// The launch shape of B1 and B2 in fir_mode (0 exact, 1 lobe, 2 mxu):
-// out[0..3] = producer warps, ring stages, warps a block, dynamic shared
-// memory a block in bytes.  Returns 0, or cudaErrorInvalidValue for an
-// unknown mode.
+// The launch shape of B1 and B2 in fir_mode (0 exact, 1 lobe, 2 mxu;
+// 3 B2's prefiltered mode): out[0..3] = producer
+// warps, ring stages, warps a block, dynamic shared memory a block in
+// bytes.  Returns 0, or cudaErrorInvalidValue for an unknown mode.
 extern "C" int gnuais_pipeline_shape(int fir_mode, int* out) {
   using gnuais::Fir;
-  if (fir_mode < 0 || fir_mode > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const int p[3] = {gnuais::kProducers<Fir::kExact>, gnuais::kProducers<Fir::kLobe>,
-                    gnuais::kProducers<Fir::kMxu>};
-  const size_t smem[3] = {gnuais::pipeline_shared_bytes<Fir::kExact>(),
+  if (fir_mode < 0 || fir_mode > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const int p[4] = {gnuais::kProducers<Fir::kExact>, gnuais::kProducers<Fir::kLobe>,
+                    gnuais::kProducers<Fir::kMxu>, gnuais::kProducers<Fir::kNone>};
+  const size_t smem[4] = {gnuais::pipeline_shared_bytes<Fir::kExact>(),
                           gnuais::pipeline_shared_bytes<Fir::kLobe>(),
-                          gnuais::pipeline_shared_bytes<Fir::kMxu>()};
+                          gnuais::pipeline_shared_bytes<Fir::kMxu>(),
+                          gnuais::pipeline_shared_bytes<Fir::kNone>()};
   out[0] = p[fir_mode];
   out[1] = gnuais::kStages;
   out[2] = 1 + p[fir_mode];

@@ -31,6 +31,10 @@
 // the pitch aligned; otherwise, and at every edge (t < 0, t >= T,
 // s >= S), the samples are copied one by one and the gaps zero-filled.
 //
+// Kernel B2's prefiltered mode feeds the ring with float32 samples that
+// were filtered before the call: its producers only copy (f32_fetch
+// below).
+//
 // A host build (gnuais_tpu_torch/hostbuild) compiles this file as C++
 // with GNUAIS_HOST_BUILD defined: a barrier becomes an atomic word, a
 // copy a plain one.
@@ -263,11 +267,33 @@ __device__ __forceinline__ void raw_column(const RawWindow& raw, bool row_major,
   }
 }
 
-// The loop of producer warp p of n_producers over chunks p, p + n, ...
-// of the block's streams s0 .. s0 + 31: per chunk, `load(t0)` reads the
-// window out of `raw` (waited for and synchronised over the warp), then
-// the next chunk's copy is issued, and `store(stage)` writes the chunk's
-// 32 x 32 filtered values into its ring stage once the stage is free.
+// The loop of producer warp p of n_producers over chunks p, p + n, ...:
+// per chunk, `fetch(t0)` issues the copy of chunk t0's input into the
+// producer's buffer, `load(t0)` reads it out (the copy waited for and
+// synchronised over the warp), then the next chunk's copy is issued, and
+// `store(stage)` writes the chunk's 32 x 32 values into its ring stage
+// once the stage is free.
+template <typename Fetch, typename Load, typename Store>
+__device__ __forceinline__ void ring_produce_with(Ring& ring, int n_chunks,
+                                                  int p, int n_producers,
+                                                  Fetch&& fetch, Load&& load,
+                                                  Store&& store) {
+  if (p < n_chunks) fetch(p * kChunk);
+  for (int k = p; k < n_chunks; k += n_producers) {
+    copy_wait();
+    __syncwarp();
+    load(k * kChunk);
+    __syncwarp();          // every lane is done with the buffer
+    if (k + n_producers < n_chunks) fetch((k + n_producers) * kChunk);
+    const int st = k % kStages;
+    bar_wait(&ring.empty[st], ((k / kStages) & 1) ^ 1);
+    store(ring.stage[st]);
+    bar_arrive(&ring.full[st]);
+  }
+}
+
+// The same over the raw int16 windows of the block's streams s0 ..
+// s0 + 31 in `raw`: `load(t0)` reads the window out of it.
 template <typename Load, typename Store>
 __device__ __forceinline__ void ring_produce(Ring& ring, RawWindow& raw,
                                              const RingInput& in, int s0,
@@ -275,18 +301,89 @@ __device__ __forceinline__ void ring_produce(Ring& ring, RawWindow& raw,
                                              int n_producers, Load&& load,
                                              Store&& store) {
   const int lane = threadIdx.x % 32;
-  if (p < n_chunks) raw_fetch(raw, in, s0, p * kChunk, lane);
-  for (int k = p; k < n_chunks; k += n_producers) {
-    copy_wait();
-    __syncwarp();
-    load(k * kChunk);
-    __syncwarp();          // every lane is done with raw
-    if (k + n_producers < n_chunks)
-      raw_fetch(raw, in, s0, (k + n_producers) * kChunk, lane);
-    const int st = k % kStages;
-    bar_wait(&ring.empty[st], ((k / kStages) & 1) ^ 1);
-    store(ring.stage[st]);
-    bar_arrive(&ring.full[st]);
+  ring_produce_with(ring, n_chunks, p, n_producers,
+                    [&](int t0) { raw_fetch(raw, in, s0, t0, lane); },
+                    load, store);
+}
+
+// ---- prefiltered input (kernel B2's prefiltered mode) --------------------
+//
+// The producers filter nothing: each copies a chunk of float32 samples
+// (32 samples of 32 streams, 4,096 bytes) into its buffer, reads its
+// stream's 32 values out of it and writes them into the stage.  The
+// buffer is the RawWindow's 4,608 bytes: 32 rows of 32 streams
+// (time-major input) or 32 rows of 32 samples 36 floats apart (row-major
+// input), so that the lanes' 16-byte reads of their own rows hit
+// distinct banks.
+
+constexpr int kF32Ld = 36;
+static_assert(sizeof(RawWindow) == kChunk * kF32Ld * sizeof(float),
+              "the float32 chunk fills the raw window");
+
+// Where a block's producers read prefiltered samples.
+struct F32Input {
+  const float* x;       // [T, pitch] time-major or [S, pitch] row-major
+  int S, T, pitch;
+  bool row_major;
+  bool vec;             // 16-byte copies allowed (pointer and pitch aligned)
+};
+
+// 16-byte copies need x 16-byte aligned and a pitch of whole 4 floats.
+inline bool ring_vec_ok_f32(const void* x, int pitch) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && pitch % 4 == 0;
+}
+
+// Issues this lane's part of the copy of chunk t0 (samples t0 .. t0 + 31
+// of streams s0 .. s0 + 31) into `raw`: 256 pieces of 4 floats, 8 a
+// lane, each one 16-byte asynchronous copy where it lies wholly inside
+// the input and in.vec, else copied float by float, zero outside.
+__device__ __forceinline__ void f32_fetch(RawWindow& raw, const F32Input& in,
+                                          int s0, int t0, int lane) {
+  float* buf = reinterpret_cast<float*>(raw.v);
+#pragma unroll
+  for (int j = 0; j < kChunk * kChunk / 4 / 32; ++j) {
+    const int c = lane + 32 * j;
+    const int row = c / 8, part = c % 8;
+    // row-major: row a stream, the piece 4 of its samples; time-major:
+    // row a sample, the piece 4 of its streams
+    const int t = in.row_major ? t0 + 4 * part : t0 + row;
+    const int s = in.row_major ? s0 + row : s0 + 4 * part;
+    float* dst = buf + row * (in.row_major ? kF32Ld : kChunk) + 4 * part;
+    const size_t at = in.row_major ? (size_t)s * in.pitch + t
+                                   : (size_t)t * in.pitch + s;
+    const bool whole = in.row_major ? (s < in.S && t + 4 <= in.T)
+                                    : (t < in.T && s + 4 <= in.S);
+    if (whole && in.vec) {
+      copy16_async(dst, in.x + at);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int te = in.row_major ? t + e : t;
+        const int se = in.row_major ? s : s + e;
+        dst[e] = (te < in.T && se < in.S) ? in.x[at + e] : 0.0f;
+      }
+    }
+  }
+  copy_commit();
+}
+
+// This lane's stream's 32 values of the chunk in `raw`.
+__device__ __forceinline__ void f32_column(const RawWindow& raw,
+                                           bool row_major, int lane,
+                                           float (&v)[kChunk]) {
+  const float* buf = reinterpret_cast<const float*>(raw.v);
+  if (row_major) {
+#pragma unroll
+    for (int j = 0; j < kChunk / 4; ++j) {
+      const float4 q = *reinterpret_cast<const float4*>(buf + lane * kF32Ld + 4 * j);
+      v[4 * j] = q.x;
+      v[4 * j + 1] = q.y;
+      v[4 * j + 2] = q.z;
+      v[4 * j + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) v[k] = buf[k * kChunk + lane];
   }
 }
 

@@ -3,8 +3,10 @@
 At first use, ``nvcc`` compiles ``gnuais_tpu_torch/csrc/*.cu`` into one
 shared library with a plain C interface under ``build/gnuais_tpu_torch/``
 at the repository root (listed in ``.gitignore``), cached by a hash of
-the sources and flags, and ``ctypes`` loads it.  Nothing here runs at
-import time.
+the sources and flags, and ``ctypes`` loads it.  The strip variants of
+kernel B2 (``csrc/pipeline_strip.cu``, an instrument) are not in it: each
+strip set is a library of its own, built the same way at its first use
+(``strip_library``).  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -41,7 +43,15 @@ _ENTRIES = {
     "gnuais_roofline_stream": [_P] * 6 + [_I] * 4 + [_P],
 }
 
+# the strip variants' source and entry points, outside the main library
+STRIP_SOURCE = "pipeline_strip.cu"
+STRIP_ENTRIES = {
+    "gnuais_pipeline_strip": [_P] * 13 + [_I] * 10 + [_P],
+    "gnuais_pipeline_strip_mask": [],
+}
+
 _lib: Optional[ctypes.CDLL] = None
+_strip_libs: dict = {}
 _lock = threading.Lock()
 build_log = ""   # compiler output of the library last built or found
 
@@ -57,7 +67,16 @@ def nvcc_path() -> str:
 
 
 def _sources():
-    return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
+    return (sorted(p for p in _CSRC.glob("*.cu") if p.name != STRIP_SOURCE),
+            sorted(_CSRC.glob("*.cuh")))
+
+
+def _digest(flags, paths) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in paths:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
 
 
 def build() -> Path:
@@ -69,11 +88,7 @@ def build() -> Path:
     global build_log
     cu, cuh = _sources()
     # -Xptxas -v changes the compiler's report, not the library
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in cu + cuh:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    out_dir = BUILD_DIR / h.hexdigest()[:16]
+    out_dir = BUILD_DIR / _digest(NVCC_FLAGS, cu + cuh)
     lib_path = out_dir / "libgnuais_tpu_torch.so"
     log_path = out_dir / "nvcc.log"
     if lib_path.exists():
@@ -107,15 +122,66 @@ def build() -> Path:
     return lib_path
 
 
+def _load(path: Path, entries: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _ENTRIES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = _load(build(), _ENTRIES)
         return _lib
+
+
+def _strip_target(mask: int):
+    """(flags, library path) of the strip set ``mask``."""
+    flags = [*NVCC_FLAGS, f"-DGNUAIS_STRIP={int(mask)}"]
+    _, cuh = _sources()
+    digest = _digest(flags, [_CSRC / STRIP_SOURCE, *cuh])
+    return flags, BUILD_DIR / "strip" / digest / "libgnuais_strip.so"
+
+
+def build_strips(masks) -> list:
+    """Compile the strip libraries of ``masks`` (bit masks of the strip
+    flags, ``fused.STRIP_FLAGS``) that are not cached, one ``nvcc`` each,
+    all started together; returns their paths."""
+    targets = [_strip_target(m) for m in masks]
+    todo = [(f, p) for f, p in targets if not p.exists()]
+    if todo:
+        nvcc = nvcc_path()
+        pid = os.getpid()
+        for _, p in todo:
+            p.parent.mkdir(parents=True, exist_ok=True)
+        procs = [subprocess.Popen(
+            [nvcc, *f, "-shared", "-o", str(p.with_suffix(f".{pid}.so")),
+             str(_CSRC / STRIP_SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for f, p in todo]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [log for proc, log in zip(procs, logs) if proc.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({STRIP_SOURCE}):\n{failed[0]}")
+        for _, p in todo:
+            os.replace(p.with_suffix(f".{pid}.so"), p)
+    return [p for _, p in targets]
+
+
+def strip_library(mask: int) -> ctypes.CDLL:
+    """The loaded library of kernel B2 with the strip set ``mask``, built
+    on first use."""
+    with _lock:
+        if mask not in _strip_libs:
+            lib = _load(build_strips([mask])[0], STRIP_ENTRIES)
+            if lib.gnuais_pipeline_strip_mask() != mask:
+                raise RuntimeError(f"strip library built for mask "
+                                   f"{lib.gnuais_pipeline_strip_mask()}, "
+                                   f"not {mask}")
+            _strip_libs[mask] = lib
+        return _strip_libs[mask]

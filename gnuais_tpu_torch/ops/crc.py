@@ -1,5 +1,9 @@
 """Batched CRC-16/X.25 frame check on the device, linear (GF(2)) form
-(counterpart of ``gnuais_tpu/ops/crc.py``, ``crc_check_frames_linear``).
+(counterpart of ``gnuais_tpu/ops/crc.py``, ``crc_check_frames_linear``),
+and the JAX module's byte-table helpers (``frames_to_line_bits``,
+``crc_check_frames``, ``extract_payload_bits``), torch ops on the
+caller's device.  Register words are int32 bit patterns, as everywhere
+in the port (the JAX package's uint32).
 
 The byte-table CRC is an affine map over GF(2): the final CRC is a
 length-dependent constant XOR the XOR over set frame bits of a 16-bit
@@ -68,6 +72,63 @@ def _tables(dev: torch.device):
         _device_tables[dev] = (torch.as_tensor(_PLANES, device=dev),
                                torch.as_tensor(_INIT_CRC, device=dev))
     return _device_tables[dev]
+
+
+def frames_to_line_bits(words: torch.Tensor,
+                        total_bits: torch.Tensor) -> torch.Tensor:
+    """Register snapshots unpacked to line-order bit rows.
+
+    words: [F, REG_WORDS] int32 (the newest appended bit is the LSB of
+    the last word); total_bits: [F] int32, payload + 22.  Returns int32
+    [F, REG_BITS] whose column 0 is each frame's first appended bit
+    (frames shorter than REG_BITS left-aligned, zero-padded)."""
+    dev = words.device
+    j = torch.arange(REG_BITS, device=dev)
+    # bit j of the register (0 = the oldest kept) is bit 31 - j % 32 of
+    # word j // 32
+    reg_bits = (words[:, j // 32] >> (31 - j % 32).to(torch.int32)) & 1
+    total = total_bits.to(torch.int64)[:, None]
+    idx = (REG_BITS - total + j[None, :]).clamp(0, REG_BITS - 1)
+    out = reg_bits.gather(1, idx)
+    return torch.where(j[None, :] < total, out, 0).to(torch.int32)
+
+
+def _line_bytes(words: torch.Tensor, payload_len: torch.Tensor):
+    """The frames' line-order bits as [F, REG_BITS / 8, 8] groups."""
+    bits = frames_to_line_bits(words, payload_len + C.FRAME_TAIL_BITS)
+    return bits.reshape(-1, REG_BITS // 8, 8)
+
+
+def crc_check_frames(words: torch.Tensor,
+                     payload_len: torch.Tensor) -> torch.Tensor:
+    """Accept mask for frame snapshots by the byte table, as the reference
+    computes it (``crc_check_frames_linear`` is the same function as one
+    product).  words: [F, REG_WORDS] int32; payload_len: [F] int32.
+    Returns bool [F]."""
+    dev = words.device
+    b = _line_bytes(words, payload_len)
+    # LSB-first bytes: bit i of a byte has weight 2^i
+    data = (b * (1 << torch.arange(8, dtype=torch.int32, device=dev))).sum(
+        dim=2, dtype=torch.int32)                                 # [F, 60]
+    buflen = payload_len // 8 + 2
+    tab = torch.as_tensor(C.CRC_TABLE.astype(np.int32), device=dev)
+    crc = torch.full((words.shape[0],), C.CRC_INIT, dtype=torch.int32,
+                     device=dev)
+    for k in range(data.shape[1]):
+        nxt = (crc >> 8) ^ tab[((crc ^ data[:, k]) & 0xFF).long()]
+        crc = torch.where(k < buflen, nxt, crc)
+    return (((~crc) & 0xFFFF) == C.CRC_MAGIC_RESIDUE) & (payload_len > 0)
+
+
+def extract_payload_bits(words: torch.Tensor,
+                         payload_len: torch.Tensor) -> torch.Tensor:
+    """The frames' payloads in AIS order, MSB first within each byte,
+    whole bytes only (the reference's rbuffer re-expansion): int32
+    [F, REG_BITS], zero past the payload's whole bytes."""
+    b = _line_bytes(words, payload_len)
+    msb = b.flip(2).reshape(-1, REG_BITS)
+    j = torch.arange(REG_BITS, device=words.device)
+    return torch.where(j[None, :] < (payload_len // 8 * 8)[:, None], msb, 0)
 
 
 def crc_check_frames_linear(words: torch.Tensor,

@@ -101,6 +101,31 @@ def dpll_scan(filtered: torch.Tensor, n_valid: int, state: DpllState
                                  lastbit=new_last)
 
 
+def compact_bits(bit_valid: torch.Tensor, bits: torch.Tensor,
+                 max_bits: int, block_base: int = 0):
+    """Pack the emitted bits of each stream densely.
+
+    bit_valid: bool [S, T]; bits: int [S, T].  Returns (bitrows [S,
+    max_bits] int32, slot_valid [S, max_bits] bool, nbits [S] int32,
+    pos_rows [S, max_bits] int32): stream s's n-th emitted bit and its
+    absolute sample index (block_base + in-block time) at column n; bits
+    past max_bits are dropped, nbits counts them all."""
+    s, t = bits.shape
+    dev = bits.device
+    pos = bit_valid.to(_I32).cumsum(dim=1) - 1
+    keep = bit_valid & (pos < max_bits)
+    rows = torch.arange(s, device=dev)[:, None].expand(s, t)[keep]
+    cols = pos[keep].long()
+    bitrows = torch.zeros((s, max_bits), dtype=_I32, device=dev)
+    bitrows[rows, cols] = bits[keep].to(_I32)
+    sample_idx = (block_base + torch.arange(t, device=dev)).to(_I32)
+    pos_rows = torch.zeros((s, max_bits), dtype=_I32, device=dev)
+    pos_rows[rows, cols] = sample_idx.expand(s, t)[keep]
+    nbits = bit_valid.sum(dim=1).to(_I32)
+    slot_valid = torch.arange(max_bits, device=dev)[None, :] < nbits[:, None]
+    return bitrows, slot_valid, nbits, pos_rows
+
+
 def group_reduce_bits(bit_valid: torch.Tensor, bits: torch.Tensor,
                       block_base: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

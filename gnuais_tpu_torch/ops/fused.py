@@ -5,7 +5,10 @@
   samples to dense frame slots in one kernel.
 - ``pipeline_fused`` (B2, ``csrc/pipeline_fused.cu``): the same decode,
   the frames landing in per-chunk candidate slots for
-  ``demod.compact_candidates``.
+  ``demod.compact_candidates``; also on float32 samples filtered before
+  the call (``prefiltered``), and with the JAX kernel's ``strip=`` pieces
+  left out (``csrc/pipeline_strip.cu``, an instrument built into a
+  library of its own at first use).
 - ``frontend_fused`` (B3, ``csrc/frontend.cu``): raw samples to 4-sample
   bit slots (FIR, DPLL, group reduce); the deframer runs after it.
 - ``dpll_fused`` (B4, ``csrc/dpll.cu``): the DPLL alone over filtered
@@ -38,11 +41,14 @@ one to its ``launches`` counter, and runs its plain PyTorch version
 Kernel and plain version return the same tuple bit for bit, but for the ``mxu`` mode,
 whose tensor-core sums run in another order than the plain product: it
 is held to packet parity (the same frames and carry on captures), its
-filtered values to ``MXU_BOUND``.
+filtered values to ``MXU_BOUND``.  B2's strip variants are instruments
+with no plain version: they run on the card only, held by their
+invariants (``diag_strip.check_strip``).
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import numpy as np
@@ -55,8 +61,13 @@ from .fir import LOBE_HI, LOBE_LO
 
 _I32 = torch.int32
 
-# the kernels' fir_mode argument
+# the kernels' fir_mode argument (B2's prefiltered mode is 3)
 FIR_MODES = {"vpu": 0, "lobe": 1, "mxu": 2}
+PREFILTERED = 3
+# the JAX kernel's strip= flags, bits of the kernels' kStrip
+# (csrc/pipeline_strip.cu says what each leaves out)
+STRIP_FLAGS = {"fir": 1, "hdlc": 2, "book": 4, "shift": 8, "snap": 16,
+               "flush": 32}
 
 # The mxu FIR's error bound against the exact FIR, per output:
 # |mxu - exact| <= MXU_BOUND[0] * sum_i |taps[i] * x[i]| + MXU_BOUND[1].
@@ -88,6 +99,18 @@ def _fir_fn(fir_mode: str):
         raise ValueError(f"unknown fir_mode {fir_mode!r}")
     return {"vpu": fir.fir_exact, "lobe": fir.fir_lobe,
             "mxu": fir.fir_mxu}[fir_mode]
+
+
+def strip_mask(strip: str) -> int:
+    """The bit mask of a comma list of strip flags ("" is 0, "shift,snap"
+    24); raises ValueError on an unknown flag."""
+    mask = 0
+    for flag in filter(None, (f.strip() for f in strip.split(","))):
+        if flag not in STRIP_FLAGS:
+            raise ValueError(f"unknown strip flag {flag!r} (known: "
+                             f"{', '.join(STRIP_FLAGS)})")
+        mask |= STRIP_FLAGS[flag]
+    return mask
 
 
 def n_candidates(t: int) -> int:
@@ -150,15 +173,17 @@ def pipeline_fused_reference(
         dpll: DpllState, hdlc: HdlcState, block_base: int = 0,
         fir_mode: str = "vpu", lost2_lo: Optional[int] = None,
         lost2_hi: Optional[int] = None, assume_full: bool = False,
-        pretiled_streams: Optional[int] = None):
+        pretiled_streams: Optional[int] = None, prefiltered: bool = False):
     """The plain PyTorch version of ``pipeline_fused``: the chain of
-    ``fir_mode`` (``fir_exact``, ``fir_lobe`` or ``fir_mxu``,
-    ``dpll_scan``, ``group_reduce_bits``) and
-    ``demod.hdlc_scan_candidates_reference``.  Same
-    arguments and returns as ``pipeline_fused``."""
+    ``fir_mode`` (``fir_exact``, ``fir_lobe`` or ``fir_mxu``; none when
+    ``prefiltered``, ``history`` then returned as it is), ``dpll_scan``,
+    ``group_reduce_bits`` and ``demod.hdlc_scan_candidates_reference``.
+    Same arguments and returns as ``pipeline_fused`` less ``strip``."""
+    _check_input(samples, prefiltered)
     rows = _rows(samples, n_valid, fir_mode, assume_full, pretiled_streams)
     gbits, gvalid, gpos, new_history, new_dpll = bit_slots(
-        rows, n_valid, history, dpll, block_base, fir_mode=fir_mode)
+        rows, n_valid, history, dpll, block_base, fir_mode=fir_mode,
+        prefiltered=prefiltered)
     new_hdlc, cand = demod.hdlc_scan_candidates_reference(
         gbits, gvalid, hdlc, gpos, lost2_lo=lost2_lo, lost2_hi=lost2_hi)
     return (*cand, new_history, new_dpll, new_hdlc)
@@ -221,13 +246,14 @@ def _wrap32(v: int) -> int:
     return (int(v) + 2**31) % 2**32 - 2**31
 
 
-def _launch(entry: str, *args) -> None:
+def _launch(entry: str, *args, strip: int = 0) -> None:
     """Call the library's C entry point ``entry`` with ``args`` and the
-    current stream of the device of the first tensor argument; raise on
-    a refused launch."""
+    current stream of the device of the first tensor argument (the
+    library of the strip set ``strip`` when it is not 0); raise on a
+    refused launch."""
     from . import _build
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    lib = _build.library()
+    lib = _build.strip_library(strip) if strip else _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(
@@ -252,18 +278,23 @@ def _kernel_input(rows: torch.Tensor, pretiled: bool):
 
 
 def _launch_pipeline(wrapper, rows, pretiled, n_valid, history, dpll, hdlc,
-                     slots, block_base, fir_mode, lost2_lo, lost2_hi):
+                     slots, block_base, fir_mode, lost2_lo, lost2_hi,
+                     prefiltered=False, strip=0):
     """Launch B1 (``wrapper`` is ``pipeline_fused_compact``: dense slots)
-    or B2 (``pipeline_fused``: candidate slots) on ``rows`` ([S, T];
-    time-major in memory when ``pretiled``, read so by the kernel), with
-    ``slots`` frame slots per stream, and add one to ``wrapper.launches``.
-    Returns (count_raw [S] or cand_valid [S, slots], words, length,
-    start, end, lost2, over, new_history, new_dpll, new_hdlc)."""
+    or B2 (``pipeline_fused``: candidate slots; ``prefiltered`` float32
+    input and the strip mask ``strip`` are B2's only) on
+    ``rows`` ([S, T]; time-major in memory when ``pretiled``, read so by
+    the kernel), with ``slots`` frame slots per stream, and add one to
+    ``wrapper.launches`` (and for B2's other modes to
+    ``pipeline_fused.mode_launches``).  Returns (count_raw [S] or
+    cand_valid [S, slots], words, length, start, end, lost2, over,
+    new_history, new_dpll, new_hdlc)."""
     candidates = wrapper is pipeline_fused
     s, t = rows.shape
     dev = rows.device
-    _check_state(rows, torch.int16, history=history,
-                 **dict(zip(dpll._fields, dpll)), **hdlc._asdict())
+    _check_state(rows, torch.float32 if prefiltered else torch.int16,
+                 history=history, **dict(zip(dpll._fields, dpll)),
+                 **hdlc._asdict())
     x, row_major, pitch = _kernel_input(rows, pretiled)
     hist = history.to(torch.float32).contiguous()
     dpll_in = torch.stack(list(dpll)).to(_I32).contiguous()           # [3, S]
@@ -284,29 +315,37 @@ def _launch_pipeline(wrapper, rows, pretiled, n_valid, history, dpll, hdlc,
     hi = 2**31 - 1 if lost2_hi is None else int(lost2_hi)
     base = _wrap32(block_base)
     nv = max(0, min(int(n_valid), t))
+    mode = PREFILTERED if prefiltered else FIR_MODES[fir_mode]
     if s:
-        entry = "gnuais_pipeline_fused" if candidates \
-            else "gnuais_pipeline_compact"
-        _launch(entry, x, hist, dpll_in, hdlc_in, reg_in, first, words,
-                fields, lost2, over, dpll_out, hdlc_out, reg_out, s, t, nv,
-                base, lo, hi, slots, FIR_MODES[fir_mode], row_major, pitch)
+        args = (x, hist, dpll_in, hdlc_in, reg_in, first, words, fields,
+                lost2, over, dpll_out, hdlc_out, reg_out, s, t, nv, base, lo,
+                hi, slots, mode)
+        entry = ("gnuais_pipeline_strip" if strip
+                 else "gnuais_pipeline_fused" if candidates
+                 else "gnuais_pipeline_compact")
+        _launch(entry, *args, row_major, pitch, strip=strip)
         wrapper.launches += 1
+        if strip or prefiltered:
+            pipeline_fused.mode_launches[
+                "strip" if strip else "prefiltered"] += 1
     new_dpll = DpllState(*dpll_out.unbind(0))
     new_hdlc = HdlcState(*hdlc_out.unbind(0), shiftreg=reg_out)
-    new_history = _carry_history(rows, hist, nv)
+    new_history = history if prefiltered else _carry_history(rows, hist, nv)
     return (first, words, fields[0], fields[1], fields[2], lost2, over,
             new_history, new_dpll, new_hdlc)
 
 
-def pipeline_shape(fir_mode: str) -> dict:
-    """The launch shape of B1 and B2 in ``fir_mode``, as the kernel source
-    sets it: producer warps, ring stages, warps a block and dynamic
-    shared memory a block in bytes (the kernel library, built on first
-    use)."""
+def pipeline_shape(fir_mode: str, prefiltered: bool = False) -> dict:
+    """The launch shape of B1 and B2 in ``fir_mode`` (or of B2's
+    prefiltered mode, whatever ``fir_mode``), as the kernel source sets
+    it: producer warps, ring stages, warps a block and dynamic shared
+    memory a block in bytes (the kernel library, built on first use)."""
     import ctypes
     from . import _build
+    _fir_fn(fir_mode)
     out = (ctypes.c_int * 4)()
-    if _build.library().gnuais_pipeline_shape(FIR_MODES[fir_mode], out):
+    mode = PREFILTERED if prefiltered else FIR_MODES[fir_mode]
+    if _build.library().gnuais_pipeline_shape(mode, out):
         raise ValueError(f"unknown fir_mode {fir_mode!r}")
     return dict(zip(("producers", "stages", "warps", "shared_bytes"), out))
 
@@ -354,15 +393,37 @@ def pipeline_fused_compact(samples: torch.Tensor, n_valid: int,
 pipeline_fused_compact.launches = 0
 
 
+def _check_input(samples: torch.Tensor, prefiltered: bool) -> None:
+    """Raise unless B2's input type fits ``prefiltered`` (float32 samples
+    filtered before the call, else raw int16)."""
+    if prefiltered and samples.dtype != torch.float32:
+        raise TypeError(f"prefiltered input must be float32, got "
+                        f"{samples.dtype}")
+    if not prefiltered and samples.dtype != torch.int16:
+        raise TypeError(f"raw input must be int16, got {samples.dtype} "
+                        f"(float32 samples need prefiltered=True)")
+
+
 def pipeline_fused(samples: torch.Tensor, n_valid: int,
                    history: torch.Tensor, dpll: DpllState, hdlc: HdlcState,
                    block_base: int = 0, fir_mode: str = "vpu",
                    lost2_lo: Optional[int] = None,
                    lost2_hi: Optional[int] = None, assume_full: bool = False,
-                   pretiled_streams: Optional[int] = None):
+                   pretiled_streams: Optional[int] = None,
+                   prefiltered: bool = False, strip: str = ""):
     """Fused decode of one block into frame candidates (kernel B2).
 
-    Arguments as ``pipeline_fused_compact`` less ``frame_slots``.
+    Arguments as ``pipeline_fused_compact`` less ``frame_slots``, and
+    two modes of the JAX function:
+    - ``prefiltered``: ``samples`` is float32, filtered before the call
+      (``fir.fir_conv``, ``fir.fir_exact``); the kernel runs no FIR,
+      ``fir_mode`` is not used and ``history`` (the caller's raw-sample
+      carry) comes back as it went in;
+    - ``strip``: a comma list of ``STRIP_FLAGS`` (the JAX kernel's perf
+      bisection, ``diag_strip``): the kernel with those pieces left out,
+      built into a library of its own at first use.  Its outputs are not
+      the decode's by design; it runs on the card only (no plain
+      version) and raises for a CPU tensor.
     Returns (cand_valid bool [S, K], cw [S, K, 15] int32 bit patterns,
     cl/cs/ce [S, K] (length, start, end), lost2 [S], over [S],
     new_history, new_dpll, new_hdlc), K = ``n_candidates(T)``: frame
@@ -372,21 +433,32 @@ def pipeline_fused(samples: torch.Tensor, n_valid: int,
     ``pipeline_fused_compact``.
 
     A CUDA tensor launches the hand-written kernel and adds one to
-    ``pipeline_fused.launches``; a CPU tensor runs the plain version."""
+    ``pipeline_fused.launches`` (``prefiltered`` or ``strip`` also to
+    ``pipeline_fused.mode_launches["prefiltered"]`` or ``["strip"]``); a
+    CPU tensor runs the plain version.  The kernel lands each frame once
+    after its 32-sample chunk, the JAX function's default
+    ``landing="body"``; JAX's "slot" landing gives the same results, and
+    the port has no ``landing`` argument."""
+    _check_input(samples, prefiltered)
+    mask = strip_mask(strip)
     rows = _rows(samples, n_valid, fir_mode, assume_full, pretiled_streams)
+    if mask and rows.device.type != "cuda":
+        raise ValueError(f"strip={strip!r} runs on the card only; a "
+                         f"stripped kernel has no plain version")
     if rows.device.type == "cuda":
         return _launch_pipeline(
             pipeline_fused, rows, pretiled_streams is not None, n_valid,
             history, dpll, hdlc, n_candidates(rows.shape[1]), block_base,
-            fir_mode, lost2_lo, lost2_hi)
+            fir_mode, lost2_lo, lost2_hi, prefiltered, mask)
     if rows.device.type == "cpu":
         return pipeline_fused_reference(
             samples, n_valid, history, dpll, hdlc, block_base, fir_mode,
-            lost2_lo, lost2_hi, assume_full, pretiled_streams)
+            lost2_lo, lost2_hi, assume_full, pretiled_streams, prefiltered)
     raise ValueError(f"unsupported device {rows.device}")
 
 
 pipeline_fused.launches = 0
+pipeline_fused.mode_launches = collections.Counter()
 
 
 def fir_mxu_probe(samples: torch.Tensor,
@@ -484,14 +556,19 @@ dpll_fused.launches = 0
 def bit_slots(samples: torch.Tensor, n_valid: int, history: torch.Tensor,
               state: DpllState, block_base: int = 0,
               fast_dpll: bool = False, fir_mode: str = "vpu",
-              exact_fir: bool = True):
+              exact_fir: bool = True, prefiltered: bool = False):
     """The unfused front end: the FIR (``fir.fir_exact``, ``fir.fir_lobe``
     or ``fir.fir_mxu`` for ``fir_mode`` "lobe" or "mxu", ``fir.fir_conv``
-    when ``exact_fir`` is False), then ``dpll_fused`` (``fast_dpll``) or
-    ``demod.dpll_scan``, then ``demod.group_reduce_bits`` (the bit axis
-    padded to a multiple of 4).  Same returns as ``frontend_fused``."""
+    when ``exact_fir`` is False; none when ``prefiltered``: ``samples``
+    are filtered and ``history`` comes back as it is), then
+    ``dpll_fused`` (``fast_dpll``) or ``demod.dpll_scan``, then
+    ``demod.group_reduce_bits`` (the bit axis padded to a multiple of 4).
+    Same returns as ``frontend_fused``."""
     fir_fn = _fir_fn(fir_mode) if exact_fir else fir.fir_conv
-    filtered, new_history = fir_fn(samples, history, n_valid=n_valid)
+    if prefiltered:
+        filtered, new_history = samples, history
+    else:
+        filtered, new_history = fir_fn(samples, history, n_valid=n_valid)
     dpll_fn = dpll_fused if fast_dpll else demod.dpll_scan
     bit_valid, bits, new_state = dpll_fn(filtered, n_valid, state)
     t = samples.shape[1]

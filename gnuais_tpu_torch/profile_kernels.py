@@ -2,14 +2,16 @@
 ``torch.profiler``, on one NVIDIA GPU:
 
     python -m gnuais_tpu_torch.profile_kernels [--streams 4096] \\
-        [--block 49152] [--rounds 3]
+        [--block 49152] [--rounds 3] [--only NAME ...]
 
 The wrappers are B1 (``pipeline_fused_compact``, 32 frame slots) and B2
-(``pipeline_fused``), each with the exact, the lobe and the mxu FIR, B3
+(``pipeline_fused``), each with the exact, the lobe and the mxu FIR, B2
+also on the block's exact FIR (``prefiltered``), B3
 (``frontend_fused``, and ``frontend_codes``, the kernel as the card
 route calls it) and B4 (``dpll_fused`` and ``dpll_codes``, on the exact
 FIR of the same block), and the deframer (``hdlc_fused``) on B3's group
-codes and on B4's sample codes of the block.  The block is ``captures.mixed`` of 32 rows, repeated over
+codes and on B4's sample codes of the block (``--only``: the wrappers
+whose names contain one of the given strings).  The block is ``captures.mixed`` of 32 rows, repeated over
 the streams.  Each wrapper runs once to warm up (and to build the
 kernels), then in the order listed and back again, ``rounds`` times,
 each call under a profiler of its own.  For each wrapper the script
@@ -60,6 +62,8 @@ def wrappers(n_streams: int, block: int):
             x, block, c.history, c.dpll, c.hdlc, fir_mode="lobe"),
         "B2 pipeline_fused mxu": lambda: fused.pipeline_fused(
             x, block, c.history, c.dpll, c.hdlc, fir_mode="mxu"),
+        "B2 pipeline_fused prefiltered": lambda: fused.pipeline_fused(
+            filtered, block, c.history, c.dpll, c.hdlc, prefiltered=True),
         "B3 frontend_fused": lambda: fused.frontend_fused(
             x, block, c.history, c.dpll),
         "B3 frontend_codes": lambda: fused.frontend_codes(
@@ -100,6 +104,7 @@ def main(argv=None) -> int:
     ap.add_argument("--streams", type=int, default=4096)
     ap.add_argument("--block", type=int, default=49_152)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--only", nargs="+", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)
@@ -107,7 +112,9 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    per_call = profile(wrappers(args.streams, args.block), args.rounds)
+    fns = {name: fn for name, fn in wrappers(args.streams, args.block).items()
+           if args.only is None or any(o in name for o in args.only)}
+    per_call = profile(fns, args.rounds)
     print(f"S={args.streams} T={args.block}, {2 * args.rounds} calls per "
           f"wrapper; mean device ms per call (torch.profiler); {card}")
     calls = 2 * args.rounds
@@ -120,7 +127,7 @@ def main(argv=None) -> int:
         if name.startswith(("B1", "B2")):
             mode = name.split()[-1]
             sh = fused.pipeline_shape(mode if mode in fused.FIR_MODES
-                                      else "vpu")
+                                      else "vpu", mode == "prefiltered")
             shape = (f" (P={sh['producers']} N={sh['stages']} "
                      f"warps/block={sh['warps']})")
         print(f"{name}: {sum(mean.values()):.3f} ms on the device{shape}")

@@ -1,5 +1,7 @@
 """The CUDA kernels (B1 ``pipeline_fused_compact`` and B2
-``pipeline_fused``, each with the exact, the lobe and the mxu FIR, B3
+``pipeline_fused``, each with the exact, the lobe and the mxu FIR; B2's
+prefiltered mode, and its strip variants held by their invariants;
+B1's and B2's landing on the densest completions), B3
 ``frontend_fused``, B4 ``dpll_fused``, the mxu probe and the roofline
 kernels R1 and R2) against their plain PyTorch versions on the card,
 bitwise (the mxu FIR's values within ``fused.MXU_BOUND``), and the paths
@@ -881,3 +883,62 @@ def test_grid_2x2_on_four_cards_matches_cpu(four_cards):
     cpu, _ = _grid_session(make_grid_mesh(2, 2, device="cpu"), x, 8192)
     assert n_card == 4 * 4
     assert card == cpu and sum(card[1][0]) > 64
+
+
+@pytest.mark.parametrize("layout", ["row", "time"])
+def test_b2_prefiltered_on_card_matches_plain(cuda, layout):
+    """B2's prefiltered mode (csrc/pipeline_fused.cu) on the exact FIR of
+    a capture against its plain version, every leaf, the history handed
+    back; its frames and carry those of B2 on the raw samples."""
+    s = 37
+    x = torch.from_numpy(captures.mixed(s, T, seed=31)).to(cuda)
+    c = init_carry(s, cuda)
+    filt = fir.fir_exact(x, c.history)[0]
+    kw = dict(block_base=9, prefiltered=True)
+    xin = filt.t().contiguous() if layout == "time" else filt
+    if layout == "time":
+        kw.update(pretiled_streams=s)
+    k = fused.pipeline_fused(xin, T - 333, c.history, c.dpll, c.hdlc, **kw)
+    p = fused.pipeline_fused_reference(filt, T - 333, c.history, c.dpll,
+                                       c.hdlc, block_base=9, prefiltered=True)
+    _assert_same(k, p)
+    assert k[7] is c.history
+    r = fused.pipeline_fused(x, T - 333, c.history, c.dpll, c.hdlc,
+                             block_base=9)
+    _assert_same(k[:7] + k[8:], r[:7] + r[8:])
+
+
+@pytest.mark.parametrize("fir_mode", ["vpu", "lobe"])
+def test_b2_body_landing_on_card_matches_slot(cuda, fir_mode):
+    """B1's and B2's landing (a frame landed once after its 32-sample
+    chunk, csrc/pipeline_kernel.cuh) bitwise equal to the plain version,
+    which lands each frame at its emission slot, on minimal back-to-back
+    frames."""
+    s = 64
+    x = torch.from_numpy(captures.minimal_frames(s, T, seed=3)).to(cuda)
+    c = init_carry(s, cuda)
+    args = (x, T, c.history, c.dpll, c.hdlc)
+    b2 = fused.pipeline_fused(*args, fir_mode=fir_mode)
+    _assert_same(b2, fused.pipeline_fused_reference(*args, fir_mode=fir_mode))
+    assert int(b2[0].sum()) > 0
+    b1 = fused.pipeline_fused_compact(*args, frame_slots=32,
+                                      fir_mode=fir_mode)
+    _assert_same(b1, fused.pipeline_fused_compact_reference(
+        *args, frame_slots=32, fir_mode=fir_mode))
+
+
+@pytest.mark.parametrize("strip", sorted(fused.STRIP_FLAGS))
+def test_b2_strip_on_card_holds_its_invariant(cuda, strip):
+    """Each strip variant (csrc/pipeline_strip.cu, its own library) held
+    by diag_strip.check_strip against the unstripped kernel."""
+    from gnuais_tpu_torch import diag_strip
+    s = 37
+    x = torch.from_numpy(captures.wrong_size_and_crc(s, T, seed=9)).to(cuda)
+    c = init_carry(s, cuda)
+    args = (x, T, c.history, c.dpll, c.hdlc)
+    out = fused.pipeline_fused(*args, strip=strip)
+    ref = fused.pipeline_fused(*args)
+    fir_ref = (fused.pipeline_fused(x.to(torch.float32), *args[1:],
+                                    prefiltered=True)
+               if strip == "fir" else None)
+    diag_strip.check_strip(strip, out, ref, c, fir_ref)

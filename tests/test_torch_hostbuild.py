@@ -269,3 +269,109 @@ def test_deframer_body_dense_completions(host, s, m, form):
     cand = ref[1].valid.reshape(s, -1, 2)
     assert bool(cand.all(dim=2).any()) == (m >= 128)
     assert int(ref[1].over.sum()) == 0
+
+
+# ---------------------------------------------------------------------------
+# B1's and B2's landing, B2's prefiltered mode and strip variants
+# ---------------------------------------------------------------------------
+
+def _b2(rows, pretiled, nv, c, mode="vpu", **kw):
+    return fused._launch_pipeline(fused.pipeline_fused, rows, pretiled, nv,
+                                  c.history, c.dpll, c.hdlc,
+                                  fused.n_candidates(rows.shape[1]), 5, mode,
+                                  None, None, **kw)
+
+
+@pytest.fixture(scope="module")
+def prefiltered_blocks():
+    """Three chained blocks (n_valid T, 20, 0) of a noisy capture from a
+    carried history: per block (raw int16, its exact FIR, n_valid, the
+    carry in, the plain prefiltered B2's outputs), the carry chained as
+    the raw samples' (the FIR history of the raw block)."""
+    s = 37
+    x = captures.mixed(s, 3 * T, seed=11)
+    c = init_carry(s, "cpu")
+    c = c._replace(history=torch.from_numpy(
+        captures.garbage(s, FIR_LEN, seed=12).astype(np.float32)))
+    out = []
+    for b, nv in enumerate((T, 20, 0)):
+        raw = torch.from_numpy(np.ascontiguousarray(x[:, b * T:(b + 1) * T]))
+        filt, history = fir.fir_exact(raw, c.history, n_valid=nv)
+        p = fused.pipeline_fused_reference(filt, nv, c.history, c.dpll,
+                                           c.hdlc, block_base=5,
+                                           prefiltered=True)
+        out.append((raw, filt, nv, c, p))
+        c = PipelineCarry(history, *p[8:])
+    return out
+
+
+@pytest.mark.parametrize("layout", ["time", "row", "row_unaligned"])
+def test_prefiltered_body_matches_plain(host, prefiltered_blocks, layout):
+    """B2's prefiltered producers (float32 chunks copied into the ring,
+    16-byte copies where aligned) against the plain version over three
+    chained blocks, every leaf, the history handed back as it came; the
+    frames and carry those of B2 on the raw samples."""
+    for raw, filt, nv, c, p in prefiltered_blocks:
+        if layout == "time":
+            rows, pretiled = filt.t().contiguous().t(), True
+        elif layout == "row":
+            rows, pretiled = filt, False
+        else:
+            wide = torch.zeros((filt.shape[0], T + 5), dtype=torch.float32)
+            wide[:, 3:3 + T] = filt
+            rows, pretiled = wide[:, 3:3 + T], False
+        k = _b2(rows, pretiled, nv, c, prefiltered=True)
+        _assert_same(k, p)
+        assert k[7] is c.history
+        r = _b2(raw, False, nv, c)
+        _assert_same(k[:7] + k[8:], r[:7] + r[8:])
+
+
+@pytest.mark.parametrize("fir_mode", ["vpu", "lobe"])
+def test_body_landing_matches_slot_landing(host, fir_mode):
+    """B1's and B2's landing (a frame latched and landed once after its
+    32-sample chunk, the JAX kernel's "body" landing) bitwise equal to
+    the plain version, which lands each frame at its emission slot:
+    minimal back-to-back frames (the densest completions) and mixed
+    captures, n_valid on and off the chunk grid, chained."""
+    for maker, s in ((captures.minimal_frames, 64), (captures.mixed, 33)):
+        x = maker(s, 2 * T, seed=s)
+        assert int(fused.pipeline_fused_reference(
+            torch.from_numpy(np.ascontiguousarray(x[:, :T])), T,
+            *init_carry(s, "cpu"))[0].sum()) > 0
+        for candidates in (False, True):
+            _chain(x, (T - 333, T), "row", fir_mode, candidates)
+
+
+@pytest.fixture(scope="module")
+def strip_libs():
+    """The host libraries of the single strip flags, built together."""
+    if hostbuild.gxx_path() is None:
+        pytest.skip("needs g++")
+    hostbuild.build_strips(fused.STRIP_FLAGS.values())
+
+
+@pytest.mark.parametrize("fir_mode", ["vpu", "lobe"])
+@pytest.mark.parametrize("strip", sorted(fused.STRIP_FLAGS))
+def test_strip_variant_holds_its_invariant(host, strip_libs, strip, fir_mode):
+    """Each strip variant of B2 (``csrc/pipeline_strip.cu``) against the
+    unstripped kernel on a capture with frames, wrong-size stops and CRC
+    rejects, from a carried history, in two FIR modes, held by
+    ``diag_strip.check_strip``:
+    the DPLL carry; ``fir`` equal to prefiltered B2 on the raw samples
+    cast to float32, every leaf; the HDLC state; the counts."""
+    from gnuais_tpu_torch import diag_strip
+    s = 37
+    x = torch.from_numpy(captures.wrong_size_and_crc(s, 4096, seed=9))
+    c = init_carry(s, "cpu")
+    c = c._replace(history=torch.from_numpy(
+        captures.garbage(s, FIR_LEN, seed=10).astype(np.float32)))
+    mask = fused.STRIP_FLAGS[strip]
+    before = fused.pipeline_fused.mode_launches["strip"]
+    out = _b2(x, False, 4000, c, fir_mode, strip=mask)
+    assert fused.pipeline_fused.mode_launches["strip"] == before + 1
+    ref = _b2(x, False, 4000, c, fir_mode)
+    fir_ref = (_b2(x.to(torch.float32), False, 4000, c, prefiltered=True)
+               if strip == "fir" else None)
+    assert int(ref[0].sum()) > 0 and int(ref[5].sum()) > 0
+    diag_strip.check_strip(strip, out, ref, c, fir_ref)
