@@ -23,6 +23,10 @@ Each of the three numbers is exact, its limit 0: ``delivery`` (the
 frames due that the program did not deliver, or delivered where the
 reference has none, and the messages that match no frame),
 ``counters`` (the streams whose counters are off) and ``reference``.
+A run's ``attempted`` is the frames due that the reference decodes, and
+its ``failed`` the ``delivery`` number (``tally``): the frames lost by
+both are in neither, since the program has to lose them too and their
+number follows the seed, not the window's length.
 """
 
 from __future__ import annotations
@@ -130,6 +134,73 @@ def judged_delivery(delivered: Sequence, blocks: Sequence[int], cycle,
     before = sum(1 for e in expected if e[0] < cut)
     out["lost_by_both"] = before - len(ref)
     return out
+
+
+def tally(traffic, delivered: Sequence, blocks: Sequence, counters: Sequence,
+          end: int, block_len: int, free: int, budget: float, rng) -> dict:
+    """Every stream's delivery after ``end`` samples of ``traffic`` (its
+    ``samples``, ``cycle``, ``shift`` and ``frames``), with
+    ``delivered``, ``blocks`` and ``counters`` given a stream each.
+
+    A stream that falls short is judged against the plain reference
+    (``judged_delivery``): where it missed frames, up to the first free
+    slot (``free``: its sample in the unshifted cycle) two cycles in and
+    past the last miss; where its counters are off, over the whole input.
+    The streams that fell short are judged in an order drawn from
+    ``rng`` while ``budget`` reference cycles last; past that, a stream's
+    misses against the encoded frames count.
+
+    Returns ``attempted``, the frames due that the reference decodes: a
+    stream's encoded frames due, or, where it was judged, the
+    reference's frames before the cut and the encoded frames after it;
+    ``failed``, what the program got wrong: the frames due it did not
+    deliver and its messages that match no frame (the ``delivery``
+    check); ``counters``, the streams whose counters are off;
+    ``lost_by_both``; ``short``; and ``unjudged``."""
+    cycle = traffic.cycle
+    attempted = failed = bad_counters = lost = 0
+    short = []
+    for i in range(len(delivered)):
+        expected = traffic.frames(i, end)
+        damaged = traffic.frames(i, end, damaged=True)
+        d = stream_delivery(delivered[i], blocks[i], expected, damaged,
+                            counters[i], end, block_len)
+        if not d["counters_ok"]:
+            # a count that no frame of the stream places: the reference
+            # decodes the whole of it
+            short.append((i, end, expected, damaged, d))
+        elif d["missed"]:
+            at = (free + int(traffic.shift[i])) % cycle
+            reach = max(2 * cycle, max(expected[k][1] for k in d["missed"])
+                        + GUARD)
+            cut = min(end, at + -(-(reach - at) // cycle) * cycle)
+            short.append((i, cut, expected, damaged, d))
+        else:
+            attempted += d["due"]
+            failed += d["extra"]
+    unjudged = 0
+    for k in rng.permutation(len(short)).tolist():
+        i, cut, expected, damaged, d = short[k]
+        if cut / cycle <= budget:
+            budget -= cut / cycle
+            d = judged_delivery(delivered[i], blocks[i], traffic.samples[i],
+                                expected, damaged, counters[i], end,
+                                block_len, cut)
+            # the reference, as gnuais, loses some frames after long idle
+            # from a cold start, all in a stream's first cycle, and the
+            # program has to lose the same ones: they say nothing of the
+            # program and their number follows the seed, not the
+            # window's length, so they are in neither ``attempted`` nor
+            # ``failed`` but counted apart
+            lost += d["lost_by_both"]
+        else:
+            unjudged += 1
+        attempted += d["due"]
+        failed += len(d["missed"]) + d["extra"]
+        bad_counters += int(not d["counters_ok"])
+    return {"attempted": attempted, "failed": failed,
+            "counters": bad_counters, "lost_by_both": lost,
+            "short": len(short), "unjudged": unjudged}
 
 
 def plain_decode(cycle: np.ndarray, total: int):

@@ -9,11 +9,15 @@ window then decodes the streams from their start, block after block of
 the traffic's cycle (the streams repeat it without a seam), while it
 lasts; the block running at the deadline is finished and counted.
 ``realtime_channels`` is the channels' samples of every block decoded in
-the window over 48,000 and over the window.  Every run logs the blocks'
-times on the host's clock and in the process's CPU seconds, the garbage
-collector's time, and the host's steal time and the process's
-involuntary context switches: whether a slow window was time the host
-took away or a slower CPU.
+the window over 48,000 and over the window.  After the window,
+``attempted`` is the frames due that the plain reference decodes and
+``failed`` the ones of them that the program did not deliver, with its
+messages that match no frame (``checks.tally``); the frames that both
+lose after a stream's idle cold start are logged apart.  Every run logs
+the blocks' times on the host's clock and in the process's CPU seconds,
+the garbage collector's time, and the host's steal time and the
+process's involuntary context switches: whether a slow window was time
+the host took away or a slower CPU.
 
 A traced run wraps the program's layers: ``BatchSession.run`` (a block),
 ``pipeline._upload`` (synchronised after), ``BatchPipeline.step``
@@ -182,47 +186,16 @@ def run(cell, generator, seed, seconds, trace, device, fault, t_start):
         f"{host}")
     t_ref = time.perf_counter()
     end = blocks * bl
-    cycle, slot = traffic.cycle, cell.traffic["slot_bits"] * \
-        cell.traffic["samples_per_bit"]
     counters = last["counters"]
-    due = bad_counters = lost = unjudged = 0
-    missed = {}
-    short = []
-    for i in range(n):
-        expected = traffic.frames(i, end)
-        damaged = traffic.frames(i, end, damaged=True)
-        d = checks.stream_delivery(delivered[i], when[i], expected, damaged,
-                                   counters[names[i]], end, bl)
-        due += d["due"]
-        if not d["counters_ok"]:
-            # a count that no frame of the stream places: the reference
-            # decodes the whole of it
-            short.append((i, end, expected, damaged, d))
-        elif d["missed"]:
-            # the last slot of each schedule is free
-            free = ((cell.traffic["cycle_slots"] - 1) * slot
-                    + int(traffic.shift[i])) % cycle
-            reach = max(2 * cycle, max(expected[k][1] for k in d["missed"])
-                        + checks.GUARD)
-            cut = min(end, free + -(-(reach - free) // cycle) * cycle)
-            short.append((i, cut, expected, damaged, d))
-        else:
-            missed[i] = d["extra"]
-    # the streams that fell short, against the plain reference, in an
-    # order drawn from the seed, while the budget of cycles lasts
-    budget = cfg["reference_cycles"]
-    for k in rng.permutation(len(short)).tolist():
-        i, cut, expected, damaged, d = short[k]
-        if cut / cycle <= budget:
-            budget -= cut / cycle
-            d = checks.judged_delivery(
-                delivered[i], when[i], traffic.samples[i], expected, damaged,
-                counters[names[i]], end, bl, cut)
-            lost += d["lost_by_both"]
-        else:
-            unjudged += 1
-        missed[i] = len(d["missed"]) + d["extra"]
-        bad_counters += int(not d["counters_ok"])
+    # the last slot of each schedule is free; the streams that fell short
+    # are judged against the plain reference in an order drawn from the
+    # seed
+    t = checks.tally(traffic, delivered, when,
+                     [counters[name] for name in names], end, bl,
+                     (cell.traffic["cycle_slots"] - 1)
+                     * cell.traffic["slot_bits"]
+                     * cell.traffic["samples_per_bit"],
+                     cfg["reference_cycles"], rng)
     printed = {i: [] for i in sample}
     tags = {f"[{names[i]}] ": i for i in sample}
     for line in lines:
@@ -235,17 +208,16 @@ def run(cell, generator, seed, seconds, trace, device, fault, t_start):
         ref += checks.against_reference(
             delivered[i], printed[i], counters[names[i]], frames,
             ref_counters, "A", end, prefix=f"[{names[i]}] ")
-    log(f"checked in {time.perf_counter() - t_ref:.3f} s: {len(short)} "
-        f"streams fell short, {unjudged} of them past the reference's "
+    log(f"checked in {time.perf_counter() - t_ref:.3f} s: {t['short']} "
+        f"streams fell short, {t['unjudged']} of them past the reference's "
         f"budget; frames lost by both the program and the reference: "
-        f"{lost}")
+        f"{t['lost_by_both']}")
     ctx = {"setup_s": t0 - t_start, "window_s": t_end - t0,
            "blocks": blocks, "streams": n, "block_len": bl,
            "spans": spans, "profile": profile if trace else None,
            "gc_s": pauses.seconds}
-    return {"ctx": ctx, "attempted": due,
-            "failed": lost + sum(missed.values()),
-            "checks": {"delivery": (sum(missed.values()), 0),
-                       "counters": (bad_counters, 0),
+    return {"ctx": ctx, "attempted": t["attempted"], "failed": t["failed"],
+            "checks": {"delivery": (t["failed"], 0),
+                       "counters": (t["counters"], 0),
                        "reference": (ref, 0)},
             "device_kind": kind, "memory_peak_bytes": peak}

@@ -5,7 +5,10 @@
 
 from the root of a checkout, on a machine with the card(s) the cell
 asks for.  The last line of standard output is one JSON object:
-``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
+``correct``, ``attempted`` (the frames due in the window that the plain
+reference decodes), ``failed`` (those of them the program did not deliver
+exactly once and as encoded, and its messages that match no frame),
+``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer metrics),
 ``device``, with ``--trace 1`` ``breakdown``, and last ``checks``: each
 number that decides ``correct`` with its limit, also printed as the last
