@@ -21,6 +21,7 @@ from gnuais_tpu_torch.ais import nmea as nmea_mod
 from gnuais_tpu_torch.ais import parser as parser_mod
 from gnuais_tpu_torch.ais.bits import henten, pad_payload
 from gnuais_tpu_torch.constants import MAX_AIS_PACKET_TYPE
+from gnuais_tpu_torch.runtime import trace
 
 
 @dataclass
@@ -53,40 +54,51 @@ class ChannelDispatcher:
         no seqnr roll, protodec.c:898-900).  For skipped types the NMEA
         is still generated and seqnr still rolls; only the stdout line
         is suppressed (protodec.c:920-932).
+
+        Traced (``runtime.trace``, summed, never annotated): the call
+        (``ais.dispatch``), the NMEA encoder (``ais.nmea``), the parser
+        with the stdout line (``ais.parse``); ``ais.messages`` counts
+        the messages.
         """
-        rb = pad_payload(payload_bits[:bufferlen])
-        msg_type = henten(0, 6, rb)
-        if msg_type < 1 or msg_type > MAX_AIS_PACKET_TYPE:
-            return None
-        mmsi = henten(8, 30, rb)
+        with trace.span("ais.dispatch"):
+            rb = pad_payload(payload_bits[:bufferlen])
+            msg_type = henten(0, 6, rb)
+            if msg_type < 1 or msg_type > MAX_AIS_PACKET_TYPE:
+                return None
+            mmsi = henten(8, 30, rb)
 
-        fillbits = 0
-        if bufferlen % 6 > 0:
-            fillbits = 6 - (bufferlen % 6)
-            bufferlen = bufferlen + fillbits  # rb already zero-padded
+            fillbits = 0
+            if bufferlen % 6 > 0:
+                fillbits = 6 - (bufferlen % 6)
+                bufferlen = bufferlen + fillbits  # rb already zero-padded
 
-        sentences = nmea_mod.generate_nmea(rb, bufferlen, fillbits, self.seqnr)
-        self.seqnr += 1
-        if self.seqnr > 9:
-            self.seqnr = 0
+            with trace.span("ais.nmea"):
+                sentences = nmea_mod.generate_nmea(rb, bufferlen, fillbits,
+                                                   self.seqnr)
+            self.seqnr += 1
+            if self.seqnr > 9:
+                self.seqnr = 0
 
-        stdout_line = ""
-        parsed = None
-        if msg_type not in self.skip:
-            parsed = parser_mod.parse(rb, bufferlen)
-            # parsed cannot be None here (type already range-checked)
-            stdout_line = (
-                f"ch {self.chanid} type {msg_type} mmsi {mmsi:09d}:"
-                f"{parsed.text} ({sentences[-1]})"
+            stdout_line = ""
+            parsed = None
+            if msg_type not in self.skip:
+                with trace.span("ais.parse"):
+                    parsed = parser_mod.parse(rb, bufferlen)
+                    # parsed cannot be None here (type already
+                    # range-checked)
+                    stdout_line = (
+                        f"ch {self.chanid} type {msg_type} mmsi "
+                        f"{mmsi:09d}:{parsed.text} ({sentences[-1]})"
+                    )
+            trace.count("ais.messages")
+
+            return DecodedMessage(
+                type=msg_type,
+                mmsi=mmsi,
+                chanid=self.chanid,
+                stdout_line=stdout_line,
+                nmea_sentences=sentences,
+                events=parsed.events if parsed else [],
+                payload_bits=rb,
+                bufferlen=bufferlen,
             )
-
-        return DecodedMessage(
-            type=msg_type,
-            mmsi=mmsi,
-            chanid=self.chanid,
-            stdout_line=stdout_line,
-            nmea_sentences=sentences,
-            events=parsed.events if parsed else [],
-            payload_bits=rb,
-            bufferlen=bufferlen,
-        )

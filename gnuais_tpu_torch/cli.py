@@ -8,7 +8,7 @@
                      [--low-latency] [--cluster COORDINATOR NPROCS PROCID]
     gnuais-tpu-torch --monitor [--map [--port N] [--tile-dir DIR] [--tile-fetch]]
     gnuais-tpu-torch --batch FILE... [--replicate N]
-                     [--backend exact|fast|fused]
+                     [--backend exact|fast|fused] [--profile DIR]
 
 The station path of ``gnuais-tpu`` (``gnuais_tpu/cli.py``).  Input is a
 capture file, stdin (``-l -``), a FIFO, or the configured sound device
@@ -71,6 +71,7 @@ from .io import audio as audio_io
 from .io.cache import JsonExporter, VesselCache
 from .io.db import DbWriter
 from .io.sinks import NmeaSocketServer, SerialSink, StdoutSink
+from .runtime import trace
 from .runtime.metrics import LevelMonitor, RangeTracker
 from .runtime.session import DecodeSession, SessionResult
 
@@ -177,17 +178,27 @@ def _resume(cfg: Config, sess: DecodeSession) -> int:
     return off
 
 
+@contextlib.contextmanager
 def _profiler(profile_dir: str, device: str):
     """``--profile``: a torch.profiler trace of the decode (host
-    timeline, and the card's kernels when decoding on it) written into
-    ``profile_dir`` (view with tensorboard or perfetto)."""
+    timeline with the port's block spans, ``gnuais.*``, and the card's
+    kernels and copies when decoding on it) written into ``profile_dir``
+    (view with tensorboard or perfetto); at its end one log line for
+    each of the port's spans (calls, total ms, ms a block) and one for
+    its counters (``runtime.trace``)."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
     acts = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    return profile(activities=acts,
-                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+    log.info("torch profiler trace -> %s", profile_dir)
+    trace.reset()
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        yield
+    for line in trace.summary():
+        log.info("trace: %s", line)
+    log.info("Profiler trace written to %s", profile_dir)
 
 
 def _active_channels(sound_channels):
@@ -677,8 +688,6 @@ def run_decode(cfg: Config, device: str, out_stream=None) -> int:
     try:
         with (_profiler(cfg.profile_dir, device) if cfg.profile_dir
               else contextlib.nullcontext()):
-            if cfg.profile_dir:
-                log.info("torch profiler trace -> %s", cfg.profile_dir)
             t0 = time_mod.time()
             if want_timepar:
                 timepar_counters, n_samples = _timepar_decode(
@@ -710,9 +719,6 @@ def run_decode(cfg: Config, device: str, out_stream=None) -> int:
             db.close()
         if quiet_rank:
             out_stream.close()
-    if cfg.profile_dir:
-        log.info("Profiler trace written to %s", cfg.profile_dir)
-
     if sess is not None:
         counters = [(name, rx.counters)
                     for name, rx in (("A", sess.rx_a), ("B", sess.rx_b))
@@ -855,8 +861,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="fetch missing map tiles from the OSM tile "
                         "service into the cache (needs network)")
     p.add_argument("--profile", metavar="DIR",
-                   help="write a torch.profiler trace of the decode to "
-                        "DIR (view with tensorboard or perfetto)")
+                   help="write a torch.profiler trace of the decode "
+                        "(--batch too) to DIR, with the port's block "
+                        "spans (gnuais.*) on the card's clock (view with "
+                        "tensorboard or perfetto), and log one line a "
+                        "span (calls, ms, ms a block) and one of the "
+                        "counters")
     p.add_argument("--checkpoint", metavar="PATH",
                    help="checkpoint decoder state (per channel) for "
                         "exact crash recovery / resume")
@@ -897,8 +907,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     if args.batch:
-        return run_batch(args.batch, args.replicate,
-                         args.backend or "exact", args.device)
+        with (_profiler(args.profile, args.device) if args.profile
+              else contextlib.nullcontext()):
+            return run_batch(args.batch, args.replicate,
+                             args.backend or "exact", args.device)
 
     if args.fork:
         from .io.live import daemonize

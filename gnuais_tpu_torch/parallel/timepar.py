@@ -36,7 +36,6 @@ captures with such gaps.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -48,6 +47,7 @@ from ..device import resolve_device
 from ..golden.model import Frame, crc_check_and_extract
 from ..ops import demod
 from ..runtime import pipeline as pl
+from ..runtime import trace
 from . import sharded as sh
 from .sharded import DEFAULT_EXTENSION, DEFAULT_OVERLAP, OWN_MARGIN
 
@@ -96,18 +96,12 @@ def _lane_carry(k: int, chunk_len: int, overlap: int,
     return carry._replace(dpll=carry.dpll._replace(pll=pll0.to(device)))
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def time_parallel_decode(stream, chunk_len: int = 65_536,
                          overlap: int = DEFAULT_OVERLAP,
                          extension: int = DEFAULT_EXTENSION,
                          frame_slots: int = 64,
                          dense_cap: Optional[int] = 8192,
-                         device: torch.device | str = "cuda",
-                         timings: Optional[dict] = None
+                         device: torch.device | str = "cuda"
                          ) -> TimeParallelResult:
     """Decode one int16 stream (numpy or a tensor) with K parallel chunk
     lanes on ``device``.
@@ -117,46 +111,48 @@ def time_parallel_decode(stream, chunk_len: int = 65_536,
     kernel B1 on the card, its plain version on the CPU.  dense_cap:
     frames are compacted across lanes on the device and only occupied
     slots travel back; when a call holds more than dense_cap frames the
-    per-lane slot drain runs instead.  None disables.  timings: a dict
-    that gets the host-clock ms of the gather, the decode and the drain
-    (the device synchronised after each; no syncs without it)."""
+    per-lane slot drain runs instead.  None disables.  Traced
+    (``runtime.trace``, host time, the device never synchronised): the
+    gather (``lanes.gather``), the decode (``lanes.decode``) and the
+    drain (``lanes.drain``)."""
     dev = resolve_device(device)
     n = len(stream)
     k = max(1, -(-n // chunk_len))          # lanes
     win = -(-(overlap + chunk_len + extension) // 512) * 512
 
-    def lap(name, t0):
-        if timings is not None:
-            _sync(dev)
-            timings[name] = (time.perf_counter() - t0) * 1e3
-        return time.perf_counter()
+    with trace.span("lanes.gather", mark=True):
+        if not isinstance(stream, torch.Tensor):
+            stream = np.ascontiguousarray(stream, dtype=np.int16)
+            # a read-only map (a raw capture file) is copied once on the
+            # host
+            x = torch.from_numpy(stream if stream.flags.writeable
+                                 else stream.copy())
+        else:
+            x = stream
+        lanes = _gather_lanes(x.to(dev), k, win, chunk_len, overlap)
+    with trace.span("lanes.decode", mark=True):
+        # lost2 gate: every lane's own region is [overlap, overlap +
+        # chunk_len) in window coordinates (block_base=0), so the bounds
+        # gate wrong-size stops to exactly one owning lane each
+        carry, frames, peak = pl.decode_block(
+            lanes, win, _lane_carry(k, chunk_len, overlap, dev),
+            frame_slots=frame_slots, exact_fir=True, fused_pipeline=True,
+            kernel_compact=True, block_base=0, lost2_lo=overlap,
+            lost2_hi=overlap + chunk_len)
+    with trace.span("lanes.drain", mark=True):
+        return _drain_lanes(frames, peak, k, chunk_len, overlap, dense_cap)
 
-    if timings is not None:
-        _sync(dev)
-    t0 = time.perf_counter()
-    if not isinstance(stream, torch.Tensor):
-        stream = np.ascontiguousarray(stream, dtype=np.int16)
-        # a read-only map (a raw capture file) is copied once on the host
-        x = torch.from_numpy(stream if stream.flags.writeable
-                             else stream.copy())
-    else:
-        x = stream
-    lanes = _gather_lanes(x.to(dev), k, win, chunk_len, overlap)
-    t0 = lap("gather_ms", t0)
-    # lost2 gate: every lane's own region is [overlap, overlap +
-    # chunk_len) in window coordinates (block_base=0), so the bounds gate
-    # wrong-size stops to exactly one owning lane each
-    carry, frames, peak = pl.decode_block(
-        lanes, win, _lane_carry(k, chunk_len, overlap, dev),
-        frame_slots=frame_slots, exact_fir=True, fused_pipeline=True,
-        kernel_compact=True, block_base=0, lost2_lo=overlap,
-        lost2_hi=overlap + chunk_len)
-    t0 = lap("decode_ms", t0)
+
+def _drain_lanes(frames: demod.FrameBatch, peak: torch.Tensor, k: int,
+                 chunk_len: int, overlap: int, dense_cap: Optional[int]
+                 ) -> TimeParallelResult:
+    """The lanes' frames on the host: each kept by the lane that owns
+    its start, in absolute positions."""
     # lane max == stream max (overlap duplicates and zero padding cannot
     # raise a maximum); both read back in one copy
-    wrong_size, peak_val = torch.stack(
+    wrong_size, peak_val = pl._readback(torch.stack(
         [frames.lost2.sum().to(torch.int64),
-         peak.max().to(torch.int64)]).tolist()
+         peak.max().to(torch.int64)]))[0].tolist()
 
     def finish(ok_items, bad_starts):
         """ok_items: (abs_start, abs_end, Frame); bad_starts: absolute
@@ -171,7 +167,6 @@ def time_parallel_decode(stream, chunk_len: int = 65_536,
                 continue
             n_bad += 1
             last = st
-        lap("drain_ms", t0)
         return TimeParallelResult(
             frames=[f for _, _, f in ok_items],
             starts=[s for s, _, _ in ok_items],
@@ -184,7 +179,8 @@ def time_parallel_decode(stream, chunk_len: int = 65_536,
 
     if dense_cap is not None:
         dense = demod.dense_frames(frames, dense_cap)
-        over, total = torch.stack([dense.over, dense.total]).tolist()
+        over, total = pl._readback(
+            torch.stack([dense.over, dense.total]))[0].tolist()
         if over == 0:
             out2: List[Tuple[int, int, Frame]] = []
             bad2: List[int] = []
@@ -200,18 +196,14 @@ def time_parallel_decode(stream, chunk_len: int = 65_536,
             return finish(out2, bad2)
         # fall through: more frames than dense_cap — the slot drain
 
-    host = demod.FrameBatch(*(leaf.cpu() for leaf in frames))
-    start = host.start.numpy()
-    end = host.end.numpy()
+    start, end, words, length, count = pl._readback(
+        frames.start, frames.end, frames.words, frames.length, frames.count)
+    words = words.view(np.uint32)
     from .. import native
     use_native = native.available()
-    per_stream = pl.extract_frames(host) if use_native else None
+    per_stream = pl._unpack(words, length, count) if use_native else None
     out: List[Tuple[int, int, Frame]] = []
     bad: List[int] = []
-    if not use_native:
-        words = host.words.numpy().view(np.uint32)
-        length = host.length.numpy()
-        count = host.count.numpy()
     for i in range(k):
         base = i * chunk_len - overlap
         n_frames = len(per_stream[i]) if use_native else int(count[i])

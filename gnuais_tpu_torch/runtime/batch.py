@@ -17,6 +17,7 @@ import torch
 from ..ais.dispatcher import ChannelDispatcher, DecodedMessage
 from ..io.audio import load_capture
 
+from . import trace
 from .pipeline import BatchPipeline
 
 # backend -> BatchPipeline flags
@@ -58,6 +59,12 @@ class BatchSession:
         self.message_callback = message_callback
 
     def run(self, streams: Sequence[np.ndarray]) -> BatchResult:
+        """Decode ``streams`` (one array each, any lengths) block by
+        block.  Traced (``runtime.trace``): each block's assembly
+        (``batch.assemble``) and everything after its decode returns,
+        the messages, the lines, the callback and, after the last block,
+        the counters table (``batch.deliver``); ``batch.blocks`` counts
+        the blocks."""
         n = len(self.names)
         if len(streams) != n:
             raise ValueError(f"{len(streams)} streams for {n} names")
@@ -66,28 +73,40 @@ class BatchSession:
         res = BatchResult()
         t0 = time_mod.time()
         for off in range(0, total, bl):
-            block = np.zeros((n, min(bl, total - off)), dtype=np.int16)
-            for i, s in enumerate(streams):
-                seg = s[off:off + bl]
-                block[i, :len(seg)] = seg
+            with trace.span("batch.assemble", mark=True):
+                block = np.zeros((n, min(bl, total - off)), dtype=np.int16)
+                for i, s in enumerate(streams):
+                    seg = s[off:off + bl]
+                    block[i, :len(seg)] = seg
             per_stream = self.pipe.process(block)
-            for i, frames in enumerate(per_stream):
-                for fr in frames:
-                    msg = self.disp[i].dispatch(fr.payload_bits, fr.bufferlen)
-                    if msg is None:
-                        continue
-                    res.messages.append(msg)
-                    if msg.stdout_line:
-                        res.lines.append(f"[{self.names[i]}] {msg.stdout_line}")
-                    if self.message_callback:
-                        self.message_callback(i, msg)
-            res.samples += block.shape[0] * block.shape[1]
+            with trace.span("batch.deliver", mark=True):
+                self._deliver(per_stream, res)
+                res.samples += block.shape[0] * block.shape[1]
+                if off + bl >= total:
+                    self._tabulate(res)
+            trace.count("batch.blocks")
+        if not total:
+            self._tabulate(res)
         res.seconds = time_mod.time() - t0
+        return res
+
+    def _deliver(self, per_stream, res: BatchResult) -> None:
+        for i, frames in enumerate(per_stream):
+            for fr in frames:
+                msg = self.disp[i].dispatch(fr.payload_bits, fr.bufferlen)
+                if msg is None:
+                    continue
+                res.messages.append(msg)
+                if msg.stdout_line:
+                    res.lines.append(f"[{self.names[i]}] {msg.stdout_line}")
+                if self.message_callback:
+                    self.message_callback(i, msg)
+
+    def _tabulate(self, res: BatchResult) -> None:
         for i, name in enumerate(self.names):
             c = self.pipe.counters[i]
             res.counters[name] = (c.receivedframes, c.lostframes,
                                   c.lostframes2)
-        return res
 
 
 def decode_files(paths: Sequence[str], replicate: int = 1,

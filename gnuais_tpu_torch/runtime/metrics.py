@@ -1,7 +1,6 @@
 """Receiver metrics: best-range tracking, audio level monitoring, and
 frame counters — the reference's runtime self-diagnostics surface
-(range.c, receiver.c:137-147, ais.c:250-262,296-310) plus TPU-side
-throughput accounting.
+(range.c, receiver.c:137-147, ais.c:250-262,296-310).
 """
 
 from __future__ import annotations
@@ -9,8 +8,7 @@ from __future__ import annotations
 import logging
 import math
 import time as time_mod
-from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 
@@ -101,22 +99,3 @@ class LevelMonitor:
             log.info(msg)
             self.last_levellog = now
         return msg
-
-
-@dataclass
-class ThroughputMeter:
-    """samples/s accounting for the TPU pipeline."""
-    samples: int = 0
-    seconds: float = 0.0
-
-    def add(self, n_samples: int, dt: float) -> None:
-        self.samples += n_samples
-        self.seconds += dt
-
-    @property
-    def samples_per_sec(self) -> float:
-        return self.samples / self.seconds if self.seconds else 0.0
-
-    @property
-    def realtime_factor(self) -> float:
-        return self.samples_per_sec / 48_000.0

@@ -44,6 +44,7 @@ from ..ops import demod, fir
 from ..ops import fused
 from ..ops.fused import (bit_slots, frontend_fused, pipeline_fused,
                          pipeline_fused_compact)
+from . import trace
 
 
 class PipelineCarry(NamedTuple):
@@ -284,34 +285,49 @@ def _reg_to_bits(words: np.ndarray, nbits: int) -> np.ndarray:
     return allbits[demod.REG_BITS - nbits:]
 
 
-def extract_frames(frames: demod.FrameBatch) -> List[List[Frame]]:
-    """Host drain: CRC-check each snapshot; returns per-stream lists of
-    Frame (crc_ok False entries kept for the wrong-CRC counter).  Uses
-    the native drain (``native.drain_frames``) when it is available."""
-    words = frames.words.cpu().numpy().view(np.uint32)
-    length = frames.length.cpu().numpy()
-    count = frames.count.cpu().numpy()
-    n_streams = words.shape[0]
+def _readback(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """The tensors on the host as numpy arrays: a device-to-host copy
+    each, with its wait for the work that writes it.  Traced as one
+    ``pipeline.readback`` span; the reads and their bytes are counted
+    (``pipeline.d2h_reads``, ``pipeline.d2h_bytes``)."""
+    with trace.span("pipeline.readback", mark=True):
+        out = [t.cpu().numpy() for t in tensors]
+    trace.count("pipeline.d2h_reads", len(out))
+    trace.count("pipeline.d2h_bytes", sum(a.nbytes for a in out))
+    return out
 
+
+def _unpack(words: np.ndarray, length: np.ndarray, count: np.ndarray
+            ) -> List[List[Frame]]:
+    """Register snapshots on the host (words [S, F, REG_WORDS] uint32,
+    length [S, F], count [S]) CRC-checked into per-stream lists of
+    Frame, crc_ok False entries kept: the native drain
+    (``native.drain_frames``) when it is available."""
     from .. import native
-    if native.available():
+    n_streams = words.shape[0]
+    with trace.span("pipeline.unpack", mark=True):
         out: List[List[Frame]] = [[] for _ in range(n_streams)]
-        for s_idx, payload, flen, ok in native.drain_frames(words, length,
-                                                            count):
-            out[s_idx].append(Frame(payload, flen, ok))
+        if native.available():
+            for s_idx, payload, flen, ok in native.drain_frames(
+                    words, length, count):
+                out[s_idx].append(Frame(payload, flen, ok))
+            return out
+        for s in range(n_streams):
+            for k in range(int(count[s])):
+                flen = int(length[s, k])
+                # the register holds payload bits + 16 FCS + 6 flag bits
+                raw = _reg_to_bits(words[s, k], flen + C.FRAME_TAIL_BITS)
+                ok, payload = crc_check_and_extract(raw, flen)
+                out[s].append(Frame(payload, flen, ok))
         return out
 
-    out = []
-    for s in range(n_streams):
-        lst: List[Frame] = []
-        for k in range(int(count[s])):
-            flen = int(length[s, k])
-            # the register holds payload bits + 16 FCS + 6 flag bits
-            raw = _reg_to_bits(words[s, k], flen + C.FRAME_TAIL_BITS)
-            ok, payload = crc_check_and_extract(raw, flen)
-            lst.append(Frame(payload, flen, ok))
-        out.append(lst)
-    return out
+
+def extract_frames(frames: demod.FrameBatch) -> List[List[Frame]]:
+    """Host drain: CRC-check each snapshot; returns per-stream lists of
+    Frame (crc_ok False entries kept for the wrong-CRC counter)."""
+    words, length, count = _readback(frames.words, frames.length,
+                                     frames.count)
+    return _unpack(words.view(np.uint32), length, count)
 
 
 def _pack_dense(dense: demod.DenseFrames, bucket: int) -> torch.Tensor:
@@ -334,7 +350,7 @@ def extract_dense(dense: demod.DenseFrames, n_streams: int,
     rounded up to a power of two (``_pack_dense``).  The native drain
     (the port's copy) sees each dense row as a one-slot pseudo-stream."""
     if total is None:
-        total = int(dense.total)
+        total = int(_readback(dense.total)[0])
     out: List[List[Tuple[int, int, Frame]]] = [[] for _ in range(n_streams)]
     if total == 0:
         return out
@@ -344,23 +360,14 @@ def extract_dense(dense: demod.DenseFrames, n_streams: int,
         bucket *= 2
     bucket = min(bucket, cap)
     nw = dense.words.shape[1]
-    flat = _pack_dense(dense, bucket).cpu().numpy()
+    flat = _readback(_pack_dense(dense, bucket))[0]
     words = flat[:bucket * nw].reshape(bucket, nw).view(np.uint32)
     length, start, end, stream = flat[bucket * nw:].reshape(4, bucket)
-    from .. import native
-    if native.available():
-        counts = np.ones(total, dtype=np.int32)
-        for row, payload, flen, ok in native.drain_frames(
-                words[:total, None, :], length[:total, None], counts):
-            out[int(stream[row])].append(
-                (int(start[row]), int(end[row]), Frame(payload, flen, ok)))
-    else:
-        for j in range(total):
-            flen = int(length[j])
-            raw = _reg_to_bits(words[j], flen + C.FRAME_TAIL_BITS)
-            ok, payload = crc_check_and_extract(raw, flen)
-            out[int(stream[j])].append(
-                (int(start[j]), int(end[j]), Frame(payload, flen, ok)))
+    # each dense row a one-slot pseudo-stream
+    rows = _unpack(words[:total, None, :], length[:total, None],
+                   np.ones(total, dtype=np.int32))
+    for j, (frame,) in enumerate(rows):
+        out[int(stream[j])].append((int(start[j]), int(end[j]), frame))
     return out
 
 
@@ -372,10 +379,12 @@ class StreamCounters:
 
 
 def _upload(samples: np.ndarray, device: torch.device) -> torch.Tensor:
-    if not (samples.flags.writeable and samples.flags.c_contiguous
-            and samples.dtype == np.int16):
-        samples = np.array(samples, dtype=np.int16, order="C")
-    return torch.from_numpy(samples).to(device)
+    with trace.span("pipeline.upload", mark=True):
+        if not (samples.flags.writeable and samples.flags.c_contiguous
+                and samples.dtype == np.int16):
+            samples = np.array(samples, dtype=np.int16, order="C")
+        trace.count("pipeline.h2d_bytes", samples.nbytes)
+        return torch.from_numpy(samples).to(device)
 
 
 class BatchPipeline:
@@ -466,35 +475,40 @@ class BatchPipeline:
         back in one transfer per leaf and drained in block order.
         Returns per-stream CRC-passing frames in arrival order; raises on
         frame slot overflow."""
+        words, length, count, lost2, dropped, crcfail = _readback(
+            frames.words, frames.length, frames.count, frames.lost2,
+            frames.dropped, frames.crcfail)
+        words = words.view(np.uint32)
         if not n_blocks:
-            return self._account(extract_frames(frames), frames)
-        host = demod.FrameBatch(*(x.cpu() for x in frames))
+            return self._account(_unpack(words, length, count), lost2,
+                                 dropped, crcfail)
         merged: List[List[Frame]] = [[] for _ in range(self.n_streams)]
         for b in range(n_blocks):
-            block = demod.FrameBatch(*(x[b] for x in host))
-            for i, lst in enumerate(extract_frames(block)):
+            for i, lst in enumerate(_unpack(words[b], length[b], count[b])):
                 merged[i].extend(lst)
-        return self._account(merged, host._replace(
-            lost2=host.lost2.sum(dim=0), dropped=host.dropped.sum(dim=0),
-            crcfail=host.crcfail.sum(dim=0)))
+        return self._account(merged, lost2.sum(axis=0), dropped.sum(axis=0),
+                             crcfail.sum(axis=0))
 
-    def _account(self, per_stream, frames) -> List[List[Frame]]:
-        lost2 = frames.lost2.cpu().numpy()
-        dropped = frames.dropped.cpu().numpy()
-        crcfail = frames.crcfail.cpu().numpy()
-        result: List[List[Frame]] = []
-        for i, lst in enumerate(per_stream):
-            ok = [f for f in lst if f.crc_ok]
-            ctr = self.counters[i]
-            ctr.receivedframes += len(ok)
-            # host-CRC mode counts rejects in the drained list;
-            # device_crc mode pre-filters and reports them in crcfail
-            ctr.lostframes += len(lst) - len(ok) + int(crcfail[i])
-            ctr.lostframes2 += int(lost2[i])
-            if dropped[i]:
-                raise RuntimeError(
-                    f"frame slot overflow on stream {i}: raise frame_slots")
-            result.append(ok)
+    def _account(self, per_stream, lost2, dropped, crcfail
+                 ) -> List[List[Frame]]:
+        received = 0
+        with trace.span("pipeline.account", mark=True):
+            result: List[List[Frame]] = []
+            for i, lst in enumerate(per_stream):
+                ok = [f for f in lst if f.crc_ok]
+                ctr = self.counters[i]
+                ctr.receivedframes += len(ok)
+                received += len(ok)
+                # host-CRC mode counts rejects in the drained list;
+                # device_crc mode pre-filters and reports them in crcfail
+                ctr.lostframes += len(lst) - len(ok) + int(crcfail[i])
+                ctr.lostframes2 += int(lost2[i])
+                if dropped[i]:
+                    raise RuntimeError(
+                        f"frame slot overflow on stream {i}: raise "
+                        f"frame_slots")
+                result.append(ok)
+        trace.count("pipeline.frames", received)
         return result
 
 

@@ -34,6 +34,7 @@ MODULES = [
     "gnuais_tpu_torch.runtime.streaming",
     "gnuais_tpu_torch.runtime.checkpoint",
     "gnuais_tpu_torch.runtime.supervisor",
+    "gnuais_tpu_torch.runtime.trace",
     "gnuais_tpu_torch.ops.discriminator",
     "gnuais_tpu_torch.io.iq",
     "gnuais_tpu_torch.parallel",

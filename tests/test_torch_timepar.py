@@ -103,8 +103,9 @@ def test_lanes_match_jax_slot_drain(capture):
 
 
 def test_lanes_timings_and_grid_phase():
-    """The timings dict gets the three stages; lane 0's negative base
-    reduces with floored modulo (never fmod) in the DPLL's grid init."""
+    """The tracer gets the three stages as spans under a profiler; lane
+    0's negative base reduces with floored modulo (never fmod) in the
+    DPLL's grid init."""
     from gnuais_tpu import constants as JC
     from gnuais_tpu_torch.parallel import timepar as T
     carry = T._lane_carry(5, 1000, 4096, torch.device("cpu"))
@@ -112,10 +113,16 @@ def test_lanes_timings_and_grid_phase():
     assert carry.dpll.pll.dtype == torch.int32
     assert carry.dpll.pll.tolist() == [int(b * JC.PLL_INC % 65536)
                                        for b in bases]
-    timings = {}
-    T.time_parallel_decode(_capture("many chunks")[:20000], chunk_len=CHUNK,
-                           device="cpu", timings=timings)
-    assert set(timings) == {"gather_ms", "decode_ms", "drain_ms"}
+    from torch.profiler import ProfilerActivity, profile
+    from gnuais_tpu_torch.runtime import trace
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        T.time_parallel_decode(_capture("many chunks")[:20000],
+                               chunk_len=CHUNK, device="cpu")
+    lanes = {k: v for k, v in trace.totals().items()
+             if k.startswith("lanes.")}
+    assert set(lanes) == {"lanes.gather", "lanes.decode", "lanes.drain"}
+    assert all(t.calls == 1 and t.ms > 0 for t in lanes.values())
 
 
 def _jax_frames(frames):
