@@ -392,6 +392,45 @@ def test_batch_pipeline_on_card(cuda):
     assert sum(len(f) for f in res[0][0]) > 0
 
 
+def test_batch_session_pinned_staging_on_card(cuda):
+    """The batch session on the card stages its blocks in page-locked
+    memory and uploads every block from it (the profiler's host-to-device
+    copy is labelled pinned, and each block is counted), and decodes two
+    calls, full streams then unequal ones, as on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnuais_tpu_torch.runtime import trace
+    from gnuais_tpu_torch.runtime.batch import BatchSession
+    x = captures.mixed(8, 3 * T, seed=16)
+    calls = [[x[i, :T] for i in range(8)],
+             [x[i, T:T + (2 * T, T - 1000, 0, 700)[i % 4]]
+              for i in range(8)]]
+    names = [f"s{i}" for i in range(8)]
+    res = []
+    for dev in (cuda, "cpu"):
+        sess = BatchSession(names, block_len=T, frame_slots=16,
+                            backend="fused", device=dev)
+        assert torch.from_numpy(sess.staging).is_pinned() == (dev == cuda)
+        trace.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = [sess.run(streams) for streams in calls]
+        counters = trace.counters()
+        trace.reset()
+        res.append([(r.lines, r.counters, r.samples) for r in got])
+        if dev == cuda:
+            # calls of 1 and 2 full blocks
+            assert counters["batch.blocks"] == 3
+            assert counters["batch.staged_pinned"] == 3
+            copies = [e.key for e in prof.key_averages()
+                      if "HtoD" in e.key]
+            assert any("Pinned" in k for k in copies), copies
+        else:
+            assert "batch.staged_pinned" not in counters
+    assert res[0] == res[1]
+    assert sum(len(lines) for lines, _, _ in res[0]) > 0
+
+
 # name: (capture function, S, n_valid, block_base)
 FRONT_CASES = {
     "frames_S1": (captures.noisy_frames, 1, T, 0),

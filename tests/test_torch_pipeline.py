@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from gnuais_tpu.runtime import pipeline as jpipe
+from gnuais_tpu.runtime.batch import BatchSession as JaxBatchSession
 from gnuais_tpu.runtime.session import DecodeSession
 from gnuais_tpu_torch import captures, convert
 from gnuais_tpu_torch.runtime import pipeline as tpipe
@@ -122,6 +123,49 @@ def test_batch_replicated_fixture(capture, expected_stdout):
         mine = [l.split("] ", 1)[1] for l in res.lines
                 if l.startswith(f"[{name}]")]
         assert mine == expected_stdout
+
+
+def test_batch_session_staging_buffer_kept_across_calls(monkeypatch):
+    """Two calls of one session, as the benchmark makes them: full
+    streams, then streams of unequal lengths (some shorter than the
+    block, one empty, a short last block).  Every block handed to
+    ``process`` is the zero-padded assembly of its segments, from the
+    same buffer each call; the lines and counters are the JAX batch
+    session's, which assembles each block afresh."""
+    bl = 4096
+    x = captures.mixed(4, 3 * bl, seed=16)
+    calls = [[x[i, :bl] for i in range(4)],
+             [x[0, bl:2 * bl + 1500], x[1, bl:2 * bl - 1000],
+              x[2, bl:bl], x[3, bl:bl + 700]]]
+    names = [f"s{i}" for i in range(4)]
+    sess = BatchSession(names, block_len=bl, device="cpu")
+    seen = []
+    process = sess.pipe.process
+
+    def record(block):
+        seen.append((block.ctypes.data, block.copy()))
+        return process(block)
+
+    monkeypatch.setattr(sess.pipe, "process", record)
+    witness = JaxBatchSession(names, block_len=bl)
+    want_blocks = []
+    for streams in calls:
+        total = max(len(s) for s in streams)
+        for off in range(0, total, bl):
+            want = np.zeros((4, min(bl, total - off)), dtype=np.int16)
+            for i, s in enumerate(streams):
+                seg = s[off:off + bl]
+                want[i, :len(seg)] = seg
+            want_blocks.append(want)
+        got, ref = sess.run(streams), witness.run(streams)
+        assert ref.lines and got.lines == ref.lines
+        assert got.counters == ref.counters
+        assert got.samples == ref.samples
+    assert [b.shape for _, b in seen] == [(4, bl), (4, bl), (4, 1500)]
+    for (_, block), want in zip(seen, want_blocks):
+        assert np.array_equal(block, want)
+    assert {ptr for ptr, _ in seen} == {sess.staging.ctypes.data}
+    assert not sess.pinned
 
 
 def test_batch_pipeline_slot_overflow_raises():

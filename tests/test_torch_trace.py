@@ -111,6 +111,8 @@ def test_batch_spans_and_counters_under_a_profiler(capture, traced):
     per_block = sum(getattr(leaves, k).numel() * 4 for k in (
         "words", "length", "count", "lost2", "dropped", "crcfail"))
     received = sum(c[0] for c in res.counters.values())
+    # the CPU's staging buffer is pageable: no block counted pinned
+    assert counters.get("batch.staged_pinned", 0) == 0
     assert counters == {"batch.blocks": 2,
                         "pipeline.h2d_bytes": 2 * STREAMS * block_len * 2,
                         "pipeline.d2h_reads": 2 * 6,
