@@ -7,7 +7,7 @@
                      [--profile DIR] [--checkpoint PATH] [--checkpoint-every N]
                      [--low-latency] [--cluster COORDINATOR NPROCS PROCID]
     gnuais-tpu-torch --monitor [--map [--port N] [--tile-dir DIR] [--tile-fetch]]
-    gnuais-tpu-torch --batch FILE... [--replicate N]
+    gnuais-tpu-torch [-c cfgfile] --batch FILE... [--replicate N]
                      [--backend exact|fast|fused] [--profile DIR]
 
 The station path of ``gnuais-tpu`` (``gnuais_tpu/cli.py``).  Input is a
@@ -46,8 +46,11 @@ distinct cards and a grid larger than the visible cards is refused (rc
 COORDINATOR NPROCS PROCID`` runs one decode across processes (the same
 command with each rank; ``parallel.cluster``): the grid spans every
 process's devices, each process decodes its own shards, and rank 0
-alone writes the output.  The device defaults to ``cuda``; ``cpu`` must
-be asked for.
+alone writes the output.  ``--batch`` decodes each file as its own mono
+stream in lock-step blocks (``runtime.batch``); of its config it takes
+``inputformat iq``, ``iqdecim`` and ``soundchannels`` (raw I/Q files of
+one or two AIS channels, channel A decoded).  The device defaults to
+``cuda``; ``cpu`` must be asked for.
 """
 
 from __future__ import annotations
@@ -790,13 +793,19 @@ def _sequential_decode(cfg: Config, device: str, live, iq_reader,
 
 
 def run_batch(paths: List[str], replicate: int, backend: str,
-              device: str) -> int:
+              device: str, cfg: Optional[Config] = None) -> int:
+    """``--batch``: the files as mono streams; with ``cfg``'s ``inputformat
+    iq``, raw I/Q files at 48 kHz x ``iqdecim`` of its ``soundchannels``."""
     from .runtime.batch import BACKENDS as BATCH_BACKENDS, decode_files
     if backend not in BATCH_BACKENDS:
         raise SystemExit(f"--batch has no {backend} backend (it has "
                          f"{', '.join(BATCH_BACKENDS)})")
-    res = decode_files(paths, replicate=replicate, backend=backend,
-                       device=device)
+    iq = cfg is not None and cfg.input_format == "iq"
+    res = decode_files(
+        paths, replicate=replicate, backend=backend, device=device,
+        iq_decim=cfg.iq_decim if iq else None,
+        iq_channels=(1 if not iq or cfg.sound_channels
+                     == C.SOUND_CHANNELS_MONO else 2))
     for line in res.lines:
         print(line)
     for name, (r, l, l2) in res.counters.items():
@@ -887,7 +896,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "process decodes its own shards, the frame "
                         "outputs go to every process and rank 0 emits")
     p.add_argument("--batch", nargs="+", metavar="CAPTURE",
-                   help="batch-decode N independent capture files")
+                   help="batch-decode N independent capture files (raw "
+                        "I/Q with -c's inputformat iq)")
     p.add_argument("--replicate", type=int, default=1,
                    help="tile --batch inputs to this many copies")
     args = p.parse_args(argv)
@@ -907,10 +917,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     if args.batch:
+        cfg = read_config(args.cfgfile) if args.cfgfile else None
         with (_profiler(args.profile, args.device) if args.profile
               else contextlib.nullcontext()):
             return run_batch(args.batch, args.replicate,
-                             args.backend or "exact", args.device)
+                             args.backend or "exact", args.device, cfg)
 
     if args.fork:
         from .io.live import daemonize

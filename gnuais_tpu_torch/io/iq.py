@@ -69,6 +69,19 @@ def _rails(raw: np.ndarray, channels: int):
             np.ascontiguousarray(fr[:, :, 1].T))
 
 
+def channel_rails(path: str, channels: int = 1, decim: int = 4):
+    """The (I, Q) rails of channel A of a raw IQ capture file of
+    ``channels`` AIS channels, as strided views of its memory map, cut to
+    whole groups of ``decim`` samples (fread's whole items)."""
+    if os.path.getsize(path) == 0:
+        mm = np.zeros((0,), dtype="<f4")
+    else:
+        mm = np.memmap(path, dtype="<f4", mode="r")
+    vpf = 2 * channels * decim
+    fr = mm[:len(mm) // vpf * vpf].reshape(-1, channels, 2)
+    return fr[:, 0, 0], fr[:, 0, 1]
+
+
 class IqLiveReader:
     """Live raw-IQ input: a blocking FIFO, stream or stdin source of the
     same interleaved float32 I/Q frames as ``IqStreamReader``.

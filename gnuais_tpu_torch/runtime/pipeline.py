@@ -441,16 +441,26 @@ class BatchPipeline:
             frame_slots=self.frame_slots, **self.flags)
         return frames, peak
 
-    def process(self, samples: np.ndarray) -> List[List[Frame]]:
-        """samples: int16 [S, n] with n <= block_len (padded here).
-        Returns per-stream CRC-passing frames in arrival order."""
+    def process(self, samples) -> List[List[Frame]]:
+        """samples: int16 [S, n] with n <= block_len (padded here): a host
+        array, uploaded by ``_upload``, or a tensor, taken as it is on the
+        pipeline's device (moved there from another).  Returns per-stream
+        CRC-passing frames in arrival order."""
         s, n = samples.shape
         if s != self.n_streams or n > self.block_len:
-            raise ValueError(f"block {samples.shape} does not fit "
+            raise ValueError(f"block {tuple(samples.shape)} does not fit "
                              f"[{self.n_streams}, <= {self.block_len}]")
-        if n < self.block_len:
-            samples = np.pad(samples, ((0, 0), (0, self.block_len - n)))
-        frames, _peak = self.step(_upload(samples, self.device), n)
+        if isinstance(samples, torch.Tensor):
+            if samples.dtype != torch.int16:
+                raise ValueError(f"a {samples.dtype} block, not int16")
+            x = samples.to(self.device).contiguous()
+            if n < self.block_len:
+                x = torch.nn.functional.pad(x, (0, self.block_len - n))
+        else:
+            if n < self.block_len:
+                samples = np.pad(samples, ((0, 0), (0, self.block_len - n)))
+            x = _upload(samples, self.device)
+        frames, _peak = self.step(x, n)
         return self.drain(frames)
 
     def process_superblock(self, samples: np.ndarray) -> List[List[Frame]]:

@@ -1,0 +1,10 @@
+"""Kernels a block launched under the program's `gnuais.iq.frontend`
+annotation, from the profiler's trace (`portbench/annotations.py`)."""
+
+from portbench.annotations import per_block
+from portbench.drivers.archive_iq import FRONTEND
+
+
+def read(ctx):
+    got = per_block(ctx, FRONTEND)
+    return None if got is None else got[0]

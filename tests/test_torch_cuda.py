@@ -431,6 +431,56 @@ def test_batch_session_pinned_staging_on_card(cuda):
     assert sum(len(lines) for lines, _, _ in res[0]) > 0
 
 
+def test_batch_session_iq_on_card_is_the_plain_reference(cuda):
+    """The batch session's IQ input at 64 streams on the card: each block's
+    rails staged in the pinned buffer and uploaded from it (the rails'
+    bytes counted once), the front end's audio within the plain reference
+    front end's limits (``portbench/reference/iq.py``: none off by more
+    than 1 LSB, at most one in 1000 by 1), and its decode that of the
+    int16 session on the same audio."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnuais_tpu_torch.runtime import trace
+    from gnuais_tpu_torch.runtime.batch import BatchSession
+    from portbench.reference import iq as ref_iq
+    s, decim = 64, 4
+    audio = captures.mixed(s, 2 * T, seed=18)
+    f = np.repeat(audio.astype(np.float64) / 8000 * 2400, decim, axis=1)
+    phase = 2 * np.pi * np.cumsum(f, axis=1) / (48_000 * decim)
+    iq = np.stack([np.cos(phase), np.sin(phase)]).astype(np.float32)
+    names = [f"s{i}" for i in range(s)]
+    sess = BatchSession(names, block_len=T, frame_slots=16, backend="fused",
+                        device=cuda, iq=True, decim=decim)
+    assert sess.staging.shape == (2, s, T * decim)
+    assert torch.from_numpy(sess.staging).is_pinned()
+    seen, process = [], sess.pipe.process
+
+    def rec(block):
+        seen.append(block.clone())
+        return process(block)
+    sess.pipe.process = rec
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        res = sess.run([(iq[0, i], iq[1, i]) for i in range(s)])
+    counters = trace.counters()
+    trace.reset()
+    assert counters["iq.h2d_bytes"] == iq.nbytes
+    assert counters["batch.staged_pinned"] == counters["batch.blocks"] == 2
+    got = torch.cat(seen, dim=1)
+    assert got.is_cuda and got.dtype == torch.int16
+    want, _ = ref_iq.frontend(torch.from_numpy(iq[0]).to(cuda),
+                              torch.from_numpy(iq[1]).to(cuda),
+                              ref_iq.start(s, cuda), decim)
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    assert int((diff > 1).sum()) == 0
+    assert int((diff == 1).sum()) <= diff.numel() // 1000
+    host = got.cpu().numpy()
+    plain = BatchSession(names, block_len=T, frame_slots=16,
+                         backend="fused", device=cuda).run(list(host))
+    assert res.lines == plain.lines and res.counters == plain.counters
+    assert len(res.lines) > 0
+
+
 # name: (capture function, S, n_valid, block_base)
 FRONT_CASES = {
     "frames_S1": (captures.noisy_frames, 1, T, 0),
